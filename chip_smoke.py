@@ -1,0 +1,356 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (``mage_tpu_torch``) on one GPU and check it.
+
+Run from the repository root with ``python3 chip_smoke.py``. Phases, each
+fatal on failure (exit code 1; 2 when there is no GPU or no package):
+
+1. the card's name and power limit, as ``nvidia-smi`` reports them;
+2. build the Hopper kernels from ``mage_tpu_torch/csrc`` with ``nvcc``;
+3. each kernel at the main path's shapes, in bf16 and f32, against its plain
+   PyTorch version on the same inputs (TF32 off), and timed beside the plain
+   version and, where one exists, a single PyTorch library call;
+4. the main path: ``MagePipeline.generate`` for ``config/mage_caterv1.yaml``
+   at full width, 16 frames, batch 32, bf16, random weights from a seed,
+   with the kernels' launch counts read around one call;
+5. a small f32 input through the same pipeline on the GPU and on the CPU
+   (plain versions), which must agree;
+6. one JSON line with every kernel's numbers, then the closing JSON line.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import os
+import statistics
+import subprocess
+import sys
+import time
+import traceback
+
+# H100 SXM data-sheet peaks (at its 700 W limit)
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
+
+BATCH, FRAMES, RES = 32, 16, 128
+VQ_N, VQ_K, VQ_D = BATCH * 16 * 16, 512, 1024  # first-frame tokens, codebook
+AX_G, AX_S, AX_D, HEADS = BATCH * 16, 16, 512, 16  # one spatial block per slot
+CA_N, CA_L, CA_D = BATCH * 16 * 16, FRAMES, 512  # one temporal block per slot
+BF16_RTOL = 2.0 ** -7  # one bf16 rounding step of the output
+F32_TOL = 1e-5
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_vq(torch, vq, gen) -> dict:
+    """VQ nearest code: ids equal on >= 99.9% of rows, every other row a
+    near-tie (its two distances within 1e-5 of the row's scale), codes the
+    exact codebook rows."""
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        z = torch.relu(torch.randn(VQ_N, VQ_D, generator=gen, device="cuda")).to(dtype)
+        cb = (torch.randn(VQ_K, VQ_D, generator=gen, device="cuda") * 0.5).to(dtype)
+        idx, codes = vq.nearest_with_codes(z, cb)
+        ref_idx, ref_codes = vq.nearest_with_codes(z, cb, impl="torch")
+        torch.cuda.synchronize()
+        if not torch.equal(codes, cb[idx.long()]):
+            raise AssertionError(f"vq {dtype}: codes are not the rows of the ids")
+        zd, cbd = z.double(), cb.double()
+        dist = (cbd * cbd).sum(1)[None] - 2 * zd @ cbd.T
+        rows = torch.arange(VQ_N, device="cuda")
+        gap = (dist[rows, idx.long()] - dist[rows, ref_idx.long()]).abs()
+        scale = dist.abs().amax(1)
+        mismatch = int((idx != ref_idx).sum())
+        if mismatch > VQ_N * 1e-3 or bool((gap > 1e-5 * scale).any()):
+            raise AssertionError(f"vq {dtype}: {mismatch} ids differ, largest gap "
+                                 f"{float((gap / scale).max()):.3g} of the row scale")
+        err = float((codes.float() - ref_codes.float()).abs().max())
+        log(f"vq {str(dtype)[6:]}: {mismatch}/{VQ_N} ids differ (near-ties), "
+            f"max |codes - plain| {err}")
+        out[dtype] = (z, cb, err)
+    z, cb, err = out[torch.bfloat16]
+    it = z.element_size()
+    nbytes = 2 * VQ_N * VQ_D * it + VQ_K * VQ_D * it + VQ_N * 4
+    b, by = bound_ms(nbytes, 2.0 * VQ_N * VQ_K * VQ_D)
+    return {
+        "name": "vq_nearest", "route": "cuda", "source": "mage_tpu_torch/csrc/vq.cu",
+        "replaces": "mage_tpu/ops/vq.py:53", "max_abs_err": err,
+        "ms": time_ms(lambda: vq.nearest_with_codes(z, cb)),
+        "plain_ms": time_ms(lambda: vq.nearest_with_codes(z, cb, impl="torch")),
+        "bound_ms": b, "bound_by": by, "library_ms": None,
+    }
+
+
+def check_axial(torch, F, ax, gen) -> dict:
+    out = {}
+    for dtype, rtol, atol in ((torch.float32, F32_TOL, F32_TOL),
+                              (torch.bfloat16, BF16_RTOL, 1e-5)):
+        q, k, v = (torch.randn(AX_G, AX_S, AX_D, generator=gen, device="cuda").to(dtype)
+                   for _ in range(3))
+        got = ax.axial_slot_attention(q, k, v, HEADS)
+        want = ax.axial_slot_attention(q, k, v, HEADS, impl="torch")
+        err = float((got.float() - want.float()).abs().max())
+        if not torch.allclose(got.float(), want.float(), rtol=rtol, atol=atol):
+            raise AssertionError(f"axial {dtype}: max abs err {err}")
+        log(f"axial {str(dtype)[6:]}: max |kernel - plain| {err}")
+        out[dtype] = (q, k, v, err)
+    q, k, v, err = out[torch.bfloat16]
+    hd = AX_D // HEADS
+    q4, k4, v4 = (t.view(AX_G, AX_S, HEADS, hd).transpose(1, 2) for t in (q, k, v))
+    b, by = bound_ms(4 * AX_G * AX_S * AX_D * q.element_size(),
+                     4.0 * AX_G * AX_S * AX_S * AX_D)
+    return {
+        "name": "axial_slot_attention", "route": "cuda",
+        "source": "mage_tpu_torch/csrc/axial_attention.cu",
+        "replaces": "mage_tpu/ops/axial_attention.py:27", "max_abs_err": err,
+        "ms": time_ms(lambda: ax.axial_slot_attention(q, k, v, HEADS)),
+        "plain_ms": time_ms(lambda: ax.axial_slot_attention(q, k, v, HEADS, impl="torch")),
+        "bound_ms": b, "bound_by": by,
+        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4)),
+    }
+
+
+def check_cached(torch, F, ca, gen) -> dict:
+    """Held at the first, a middle and the last slot; timed as the main path
+    calls it, once at each pos = 0..L-1, reported per call."""
+    out = {}
+    for dtype, rtol, atol in ((torch.float32, F32_TOL, F32_TOL),
+                              (torch.bfloat16, BF16_RTOL, 1e-5)):
+        q = torch.randn(CA_N, CA_D, generator=gen, device="cuda").to(dtype)
+        ck = torch.randn(CA_L, CA_N, CA_D, generator=gen, device="cuda").to(dtype)
+        cv = torch.randn(CA_L, CA_N, CA_D, generator=gen, device="cuda").to(dtype)
+        err = 0.0
+        for pos in (0, CA_L // 2, CA_L - 1):
+            got = ca.cached_slot_attention(q, ck, cv, pos, HEADS)
+            want = ca.cached_slot_attention(q, ck, cv, pos, HEADS, impl="torch")
+            e = float((got.float() - want.float()).abs().max())
+            if not torch.allclose(got.float(), want.float(), rtol=rtol, atol=atol):
+                raise AssertionError(f"cached {dtype} pos {pos}: max abs err {e}")
+            err = max(err, e)
+        log(f"cached {str(dtype)[6:]}: max |kernel - plain| {err}")
+        out[dtype] = (q, ck, cv, err)
+    q, ck, cv, err = out[torch.bfloat16]
+    hd = CA_D // HEADS
+    q4 = q.view(CA_N, HEADS, 1, hd)
+    k4, v4 = (t.view(CA_L, CA_N, HEADS, hd).permute(1, 2, 0, 3) for t in (ck, cv))
+    masks = [(torch.arange(CA_L, device="cuda") <= p).view(1, 1, 1, CA_L)
+             for p in range(CA_L)]
+    it = q.element_size()
+    nbytes = sum((2 * CA_N * CA_D + 2 * (p + 1) * CA_N * CA_D) * it for p in range(CA_L))
+    flops = sum(4.0 * (p + 1) * CA_N * CA_D for p in range(CA_L))
+    b, by = bound_ms(nbytes / CA_L, flops / CA_L)
+
+    def every_pos(impl):
+        return lambda: [ca.cached_slot_attention(q, ck, cv, p, HEADS, impl=impl)
+                        for p in range(CA_L)]
+
+    return {
+        "name": "cached_slot_attention", "route": "cuda",
+        "source": "mage_tpu_torch/csrc/cached_attention.cu",
+        "replaces": "mage_tpu/ops/cached_attention.py:44", "max_abs_err": err,
+        "ms": time_ms(every_pos("auto"), iters=5) / CA_L,
+        "plain_ms": time_ms(every_pos("torch"), iters=5) / CA_L,
+        "bound_ms": b, "bound_by": by,
+        "library_ms": time_ms(lambda: [F.scaled_dot_product_attention(q4, k4, v4, attn_mask=m)
+                                       for m in masks], iters=5) / CA_L,
+    }
+
+
+def make_batch(np, batch: int, context: int, seed: int = 0) -> dict:
+    """The JAX bench's inputs: random frames, a 4-word caption, a speed."""
+    rng = np.random.RandomState(seed)
+    text = np.zeros((batch, context), np.int64)
+    text[:, 0] = 1
+    text[:, 1:5] = rng.randint(3, 29, size=(batch, 4))
+    text[:, 5] = 2
+    return {"images": rng.rand(batch, FRAMES, RES, RES, 3).astype(np.float32) - 0.5,
+            "text": text, "speed": rng.rand(batch).astype(np.float32)}
+
+
+def run_main_path(torch, np, build_pipeline, kernels, card: str) -> dict:
+    pipe = build_pipeline("config/mage_caterv1.yaml", FRAMES, device="cuda", seed=0)
+    pipe.to(dtype=torch.bfloat16)  # both stages, as the JAX bench casts them
+    batch = make_batch(np, BATCH, pipe.core.text_encoder.positions.num_embeddings)
+    gen = torch.Generator(device="cuda")
+    video = pipe.generate(batch, generator=gen.manual_seed(1))  # warm-up
+    torch.cuda.synchronize()
+
+    for kern in kernels.values():
+        kern.launches = 0
+    video = pipe.generate(batch, generator=gen.manual_seed(1))
+    torch.cuda.synchronize()
+    launches = {name: kern.launches for name, kern in kernels.items()}
+    log(f"main path launches per generate: {launches}")
+    want = {"vq_nearest": 1, "axial_slot_attention": 4 * FRAMES,
+            "cached_slot_attention": 2 * FRAMES}
+    if launches != want:
+        raise AssertionError(f"launch counts {launches}, expected {want}")
+    if tuple(video.shape) != (BATCH, FRAMES, RES, RES, 3):
+        raise AssertionError(f"output shape {tuple(video.shape)}")
+    if not bool(torch.isfinite(video.float()).all()):
+        raise AssertionError("non-finite frames")
+
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pipe.generate(batch, generator=gen.manual_seed(2 + i))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    gen_frames = BATCH * (FRAMES - 1)
+    result = {
+        "generated_frames_per_s": gen_frames / statistics.median(times),
+        "generate_s": times, "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "card": card, "batch": BATCH, "frames_length": FRAMES, "dtype": "bfloat16",
+        "stage_ms": stage_breakdown(torch, pipe, batch, gen),
+    }
+    log("main path: " + json.dumps(result))
+    return launches
+
+
+def stage_breakdown(torch, pipe, batch, gen) -> dict:
+    """Device time of the three stages ``generate`` runs, by CUDA events
+    around the same calls it makes (median of 3)."""
+    first = torch.from_numpy(batch["images"][:, :1]).to("cuda", torch.bfloat16)
+    text = torch.from_numpy(batch["text"]).cuda()
+    speed = torch.from_numpy(batch["speed"]).to("cuda", torch.bfloat16)
+    stages = {
+        "first_frame_encode": lambda: pipe.first_stage.encode(first),
+        "ar_core": lambda: pipe.core.generate_cached(
+            lat0, text, speed, generator=gen.manual_seed(1)),
+        "frame_decode": lambda: pipe.first_stage.decode(ids),
+    }
+    lat0 = stages["first_frame_encode"]()
+    ids = stages["ar_core"]()
+    out = {}
+    for name, fn in stages.items():
+        runs = []
+        for _ in range(3):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize()
+            runs.append(start.elapsed_time(end))
+        out[name] = statistics.median(runs)
+    return out
+
+
+def run_reference_check(torch, np, build_pipeline) -> None:
+    """Batch 2, f32: the GPU (kernels) against the CPU (plain versions)."""
+    batch = make_batch(np, 2, 32, seed=3)
+    noise = torch.randn(2, 16, 16, 64, generator=torch.Generator().manual_seed(4))
+    outs = {}
+    for device in ("cuda", "cpu"):
+        pipe = build_pipeline("config/mage_caterv1.yaml", FRAMES, device=device, seed=0)
+        first = torch.from_numpy(batch["images"][:, :1]).to(device)
+        lat0 = pipe.first_stage.encode(first)
+        ids = pipe.core.generate_cached(
+            lat0, torch.from_numpy(batch["text"]).to(device),
+            torch.from_numpy(batch["speed"]).to(device), video_noise=noise.to(device))
+        outs[device] = (pipe, lat0.cpu(), ids.cpu())
+    gpu_pipe, lat_g, ids_g = outs["cuda"]
+    _, lat_c, ids_c = outs["cpu"]
+    same_lat = float((lat_g == lat_c).float().mean())
+    same_ids = float((ids_g == ids_c).float().mean())
+    few = ids_c[:, :4]  # 8 frames keep the CPU decode short
+    frames_g = gpu_pipe.first_stage.decode(few.cuda()).cpu()
+    frames_c = outs["cpu"][0].first_stage.decode(few)
+    frame_err = float((frames_g - frames_c).abs().max())
+    log(f"f32 GPU vs CPU: first-frame ids equal {same_lat:.4f}, generated ids equal "
+        f"{same_ids:.4f}, max |frames| diff {frame_err:.3g}")
+    if same_lat < 0.999 or same_ids < 0.99 or not frame_err < 1e-3:
+        raise AssertionError("the GPU pipeline disagrees with the CPU reference")
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    root = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, root)
+    os.chdir(root)
+    try:
+        import numpy as np
+        import torch.nn.functional as F
+
+        from mage_tpu_torch import _build
+        from mage_tpu_torch.models.pipeline import build_pipeline
+        from mage_tpu_torch.ops import axial_attention as ax
+        from mage_tpu_torch.ops import cached_attention as ca
+        from mage_tpu_torch.ops import vq
+    except ImportError as e:
+        print(f"chip_smoke: the mage_tpu_torch package is missing ({e})", file=sys.stderr)
+        return 2
+
+    try:
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True, text=True,
+                             timeout=60, check=True).stdout.strip().splitlines()[0]
+        log(smi)
+        kind = torch.cuda.get_device_name(0)
+        log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {kind}")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+
+        t0 = time.perf_counter()
+        lib = _build.build(verbose=True)
+        _build.library()
+        log(f"built {os.path.relpath(lib, root)} in {time.perf_counter() - t0:.1f} s")
+
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        rows = [check_vq(torch, vq, gen), check_axial(torch, F, ax, gen),
+                check_cached(torch, F, ca, gen)]
+        kernels = {"vq_nearest": vq.KERNEL, "axial_slot_attention": ax.KERNEL,
+                   "cached_slot_attention": ca.KERNEL}
+        launches = run_main_path(torch, np, build_pipeline, kernels, smi)
+        for row in rows:
+            row["launches"] = launches[row["name"]]
+        run_reference_check(torch, np, build_pipeline)
+    except Exception:
+        traceback.print_exc()
+        return 1
+
+    for row in rows:
+        for key in ("ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err"):
+            if row[key] is not None and not math.isfinite(row[key]):
+                print(f"chip_smoke: {row['name']} {key} = {row[key]}", file=sys.stderr)
+                return 1
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms")
+    print(json.dumps({"kernels": [{k: row[k] for k in keys} for row in rows]}), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                             "count": torch.cuda.device_count()}}),
+          flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

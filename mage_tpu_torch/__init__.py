@@ -1,0 +1,15 @@
+"""mage_tpu_torch: MAGE text-and-image-to-video generation in PyTorch and CUDA.
+
+The port of ``mage_tpu`` (JAX) to one NVIDIA H100. It keeps the JAX
+package's public layouts (NHWC frames, (B, T, h, w) ids, flat (L, N, D) KV
+caches) and the reference PyTorch state-dict keys, and replaces each Pallas
+kernel on its path with a kernel written by hand for Hopper (``csrc/``,
+built at first use by ``_build``). It imports no JAX and nothing of
+``mage_tpu``.
+
+This slice covers discrete MAGE generation: the f8 VQ-VAE first stage, the
+text and motion-anchor encoders, and the axial decoder with the naive and
+the KV-cached sampler.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,171 @@
+"""Build the hand-written Hopper kernels under ``csrc/`` and bind them.
+
+The ``.cu`` files have a plain C interface. At first use they are compiled
+by ``nvcc`` for ``sm_90a`` (one process per source, all started together),
+linked into one shared library under ``_build/`` whose name carries a hash
+of the sources and flags, and loaded with ``ctypes``. A second process that
+finds the library already built loads it without compiling.
+
+Each C entry point launches on the stream it is given and returns
+``cudaGetLastError()``; :class:`Kernel` raises if that is not 0. A wrapper
+never synchronises and allocates its outputs itself with ``torch.empty``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+from typing import Sequence
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-Xcompiler", "-fPIC")
+
+# dtype codes shared with csrc/common.cuh
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    found = shutil.which("nvcc") or shutil.which(os.path.join(cuda_home, "bin", "nvcc"))
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found (looked on PATH and in $CUDA_HOME/bin): the "
+            "mage_tpu_torch kernels are built from csrc/ at first use"
+        )
+    return found
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sorted(CSRC.iterdir()):
+        if p.suffix in (".cu", ".cuh"):
+            h.update(p.name.encode())
+            h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def library_path() -> Path:
+    return BUILD_DIR / f"libmage_kernels_{_digest()}.so"
+
+
+def build(verbose: bool = False) -> Path:
+    """Compile every source in parallel and link the shared library, unless
+    a library built from the same sources exists. Returns its path."""
+    out = library_path()
+    if out.exists():
+        return out
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        procs = []
+        for src in _sources():
+            obj = Path(tmp) / (src.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(src), "-o", str(obj)]
+            if verbose:
+                cmd[1:1] = ["-Xptxas", "-v"]
+            procs.append((src, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        failed = []
+        for src, _, proc in procs:
+            log, _ = proc.communicate()
+            if verbose and log:
+                print(f"[nvcc {src.name}]\n{log}", flush=True)
+            if proc.returncode != 0:
+                failed.append(f"{src.name}:\n{log}")
+        if failed:
+            raise RuntimeError("nvcc failed for " + "\n".join(failed))
+        tmp_lib = Path(tmp) / out.name
+        link = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp_lib),
+                *(str(obj) for _, obj, _ in procs), "-lcudart"]
+        res = subprocess.run(link, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                             text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed:\n{res.stdout}")
+        os.replace(tmp_lib, out)  # atomic: a concurrent builder sees all or nothing
+    return out
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    return ctypes.CDLL(str(build()))
+
+
+class Kernel:
+    """One C entry point of the kernel library, with a launch count.
+
+    ``launches`` is a plain integer that grows by one each time the entry
+    point is called; a run sets it to 0 to count the launches of one path.
+    """
+
+    def __init__(self, symbol: str, argtypes: Sequence):
+        self.symbol = symbol
+        self.argtypes = list(argtypes)
+        self.launches = 0
+
+    @functools.cached_property
+    def _fn(self):
+        fn = getattr(library(), self.symbol)
+        fn.argtypes = self.argtypes
+        fn.restype = ctypes.c_int
+        return fn
+
+    def __call__(self, *args) -> None:
+        err = self._fn(*args)
+        self.launches += 1
+        if err != 0:
+            describe = library().mage_cuda_error_string
+            describe.argtypes = [ctypes.c_int]
+            describe.restype = ctypes.c_char_p
+            raise RuntimeError(
+                f"{self.symbol}: CUDA error {err}: {describe(err).decode()}")
+
+
+def stream_ptr(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def dtype_code(t: torch.Tensor) -> int:
+    try:
+        return DTYPE_CODES[t.dtype]
+    except KeyError:
+        raise TypeError(
+            f"kernel takes float32 or bfloat16, got {t.dtype}") from None
+
+
+def check_cuda(name: str, *tensors: torch.Tensor) -> None:
+    """Device, dtype and contiguity checks shared by every kernel wrapper."""
+    first = tensors[0]
+    for t in tensors:
+        if not t.is_cuda:
+            raise ValueError(f"{name}: the kernel takes CUDA tensors, got {t.device}")
+        if t.device != first.device:
+            raise ValueError(f"{name}: tensors on {first.device} and {t.device}")
+        if t.dtype != first.dtype:
+            raise TypeError(f"{name}: mixed dtypes {first.dtype} and {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: the kernel takes contiguous tensors")
+    dtype_code(first)
+
+
+def use_kernel(impl: str, x: torch.Tensor) -> bool:
+    """``impl="auto"``: the kernel for a CUDA tensor, the plain version for a
+    CPU tensor. ``impl="torch"``: the plain version on any device."""
+    if impl == "torch":
+        return False
+    if impl != "auto":
+        raise ValueError(f"impl must be 'auto' or 'torch', got {impl!r}")
+    return x.is_cuda

@@ -1,0 +1,234 @@
+"""Carry weights from ``mage_tpu`` parameter trees into the port.
+
+The port's own numpy-only copy of the JAX package's export logic
+(``mage_tpu/compat/torch_export.py``): JAX parameter trees, given as nested
+dicts of numpy arrays, become state dicts in the reference PyTorch layout,
+which is the layout of the port's modules (NHWC flax kernels -> NCHW torch,
+DenseGeneral q/k/v -> packed ``in_proj``, and so on). It covers the f8
+VQ-VAE and discrete ``MAGECore`` (``use_cids=True``, ``pre_ln=False``), whose
+``ln_q``/``ln_kv`` are emitted as identity.
+
+``load`` and ``load_pipeline`` strict-load the result into the port's modules.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+
+
+def _np(x) -> np.ndarray:
+    return np.asarray(x)
+
+
+def conv2d_weight(kernel) -> np.ndarray:
+    """(kH, kW, I, O) -> (O, I, kH, kW)."""
+    return _np(kernel).transpose(3, 2, 0, 1)
+
+
+def conv3d_weight(kernel) -> np.ndarray:
+    """(kT, kH, kW, I, O) -> (O, I, kT, kH, kW)."""
+    return _np(kernel).transpose(4, 3, 0, 1, 2)
+
+
+def linear_weight(kernel) -> np.ndarray:
+    """(I, O) -> (O, I)."""
+    return _np(kernel).T
+
+
+def merge_in_proj(q, k, v) -> tuple[np.ndarray, np.ndarray]:
+    """Three (D, heads, hd) DenseGeneral kernels (+ (heads, hd) biases) ->
+    packed (3D, D) in_proj_weight and (3D,) in_proj_bias."""
+    ws, bs = [], []
+    for p in (q, k, v):
+        kern = _np(p["kernel"])
+        ws.append(kern.reshape(kern.shape[0], -1).T)
+        bs.append(_np(p["bias"]).reshape(-1))
+    return np.concatenate(ws, axis=0), np.concatenate(bs, axis=0)
+
+
+def out_proj_weight(kernel) -> np.ndarray:
+    """(heads, hd, D) -> (D, D)."""
+    kern = _np(kernel)
+    return kern.reshape(-1, kern.shape[-1]).T
+
+
+def to_torch(sd: Mapping[str, np.ndarray]) -> dict:
+    """numpy state dict -> CPU torch tensors (copied: JAX buffers are read-only)."""
+    return {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}
+
+
+def _put_conv(sd, prefix, params, kind="conv2d"):
+    fn = {"conv2d": conv2d_weight, "linear": linear_weight}[kind]
+    sd[f"{prefix}.weight"] = fn(params["kernel"])
+    if "bias" in params:
+        sd[f"{prefix}.bias"] = _np(params["bias"])
+
+
+def _put_bottleneck(sd, prefix, params, has_id_path):
+    convs = [params[f"Conv_{i}"] for i in range(4 + has_id_path)]
+    if has_id_path:
+        _put_conv(sd, f"{prefix}.id_path", convs[0])
+        convs = convs[1:]
+    for conv, t in zip(convs, (1, 3, 5, 7)):
+        _put_conv(sd, f"{prefix}.block.{t}", conv)
+
+
+def export_vqvae(variables: Mapping[str, Any]) -> dict:
+    """{params, ...} of an f8 ``VectorQuantizedVAE`` -> reference state dict
+    (the f4 variant waits for ROADMAP A2)."""
+    params = variables["params"]
+    enc, dec = params["encoder"], params["decoder"]
+    sd: dict = {"codebook.embedding.weight": _np(params["codebook"])}
+    _put_conv(sd, "encoder.0", enc["Conv_0"])
+    for i, (t, chg) in enumerate(zip((1, 3, 5, 7), (False, False, True, True))):
+        _put_bottleneck(sd, f"encoder.{t}", enc[f"EncoderBlock_{i}"], chg)
+    for i, (t, chg) in enumerate(zip((0, 2, 4, 6), (True, True, False, False))):
+        _put_bottleneck(sd, f"decoder.{t}", dec[f"DecoderBlock_{i}"], chg)
+    _put_conv(sd, "decoder.8", dec["Conv_0"])
+    return sd
+
+
+def _put_ln(sd, prefix, params):
+    sd[f"{prefix}.weight"] = _np(params["scale"])
+    sd[f"{prefix}.bias"] = _np(params["bias"])
+
+
+def _put_identity_ln(sd, prefix, dim):
+    sd[f"{prefix}.weight"] = np.ones((dim,), np.float32)
+    sd[f"{prefix}.bias"] = np.zeros((dim,), np.float32)
+
+
+def _put_mha(sd, prefix, params):
+    w, b = merge_in_proj(params["q_proj"], params["k_proj"], params["v_proj"])
+    sd[f"{prefix}.in_proj_weight"] = w
+    sd[f"{prefix}.in_proj_bias"] = b
+    sd[f"{prefix}.out_proj.weight"] = out_proj_weight(params["out_proj"]["kernel"])
+    sd[f"{prefix}.out_proj.bias"] = _np(params["out_proj"]["bias"])
+
+
+def _put_mlp(sd, prefix, params):
+    _put_conv(sd, f"{prefix}.c_fc", params["c_fc"], "linear")
+    _put_conv(sd, f"{prefix}.c_proj", params["c_proj"], "linear")
+
+
+def export_axial_block(params: Mapping[str, Any], prefix: str = "") -> dict:
+    """``AxialAttentionBlock`` params -> state dict (keys under ``prefix``)."""
+    sd: dict = {}
+    p = f"{prefix}." if prefix else ""
+    _put_mha(sd, f"{p}attn", params["attn"])
+    _put_ln(sd, f"{p}ln_1", params["ln_1"])
+    _put_ln(sd, f"{p}ln_2", params["ln_2"])
+    _put_mlp(sd, f"{p}mlp", params["mlp"])
+    return sd
+
+
+def _put_cross_block(sd, prefix, params):
+    _put_mha(sd, f"{prefix}.attn", params["attn"])
+    _put_ln(sd, f"{prefix}.ln_2", params["ln_2"])
+    _put_mlp(sd, f"{prefix}.mlp", params["mlp"])
+    dim = _np(params["attn"]["out_proj"]["bias"]).shape[0]
+    _put_identity_ln(sd, f"{prefix}.ln_q", dim)
+    _put_identity_ln(sd, f"{prefix}.ln_kv", dim)
+
+
+def export_text_encoder(te: Mapping[str, Any], text_layers: int,
+                        prefix: str = "text_encoder") -> dict:
+    sd: dict = {}
+    p = f"{prefix}." if prefix else ""
+    sd[f"{p}token_embedding.weight"] = _np(te["token_embedding"]["embedding"])
+    sd[f"{p}positions.weight"] = _np(te["positions"]["embedding"])
+    _put_ln(sd, f"{p}layer_norm", te["layer_norm"])
+    _put_ln(sd, f"{p}ln_text_final", te["ln_text_final"])
+    _put_conv(sd, f"{p}text_projection", te["text_projection"], "linear")
+    for i in range(text_layers):
+        lp = f"{p}transformer.layers.{i}"
+        layer = te[f"layer_{i}"]
+        _put_mha(sd, f"{lp}.self_attn", layer["self_attn"])
+        _put_ln(sd, f"{lp}.norm1", layer["norm1"])
+        _put_ln(sd, f"{lp}.norm2", layer["norm2"])
+        _put_conv(sd, f"{lp}.linear1", layer["linear1"], "linear")
+        _put_conv(sd, f"{lp}.linear2", layer["linear2"], "linear")
+    return sd
+
+
+def export_ma_encoder(ma: Mapping[str, Any], ma_layers: int,
+                      prefix: str = "ma_encoder") -> dict:
+    sd: dict = {}
+    p = f"{prefix}." if prefix else ""
+    for i in range(ma_layers):
+        _put_cross_block(sd, f"{p}blocks.{i}", ma[f"block_{i}"])
+    return sd
+
+
+def export_adain(adain: Mapping[str, Any], prefix: str = "adain") -> dict:
+    sd: dict = {}
+    p = f"{prefix}." if prefix else ""
+    _put_conv(sd, f"{p}conv_mu.0", adain["conv_mu_0"])
+    _put_conv(sd, f"{p}conv_mu.1", adain["conv_mu_1"])
+    _put_conv(sd, f"{p}conv_var.0", adain["conv_var_0"])
+    _put_conv(sd, f"{p}conv_var.1", adain["conv_var_1"])
+    return sd
+
+
+def _put_basic_block3d(sd, prefix, params):
+    sd[f"{prefix}.conv1.weight"] = conv3d_weight(params["conv1"]["kernel"])
+    _put_ln(sd, f"{prefix}.bn1", params["bn1"])
+    sd[f"{prefix}.conv2.weight"] = conv3d_weight(params["conv2"]["kernel"])
+    _put_ln(sd, f"{prefix}.bn2", params["bn2"])
+    sd[f"{prefix}.downsample.0.weight"] = conv3d_weight(params["downsample_conv"]["kernel"])
+    _put_ln(sd, f"{prefix}.downsample.1", params["downsample_norm"])
+
+
+def export_mage_core(params: Mapping[str, Any], *, randomness: bool, text_layers: int,
+                     ma_layers: int, dec_layers: int,
+                     first_stage: Mapping[str, np.ndarray] | None = None) -> dict:
+    """Discrete ``MAGECore`` params -> reference MAGE state dict;
+    ``first_stage`` (from :func:`export_vqvae`) is merged under
+    ``first_stage_model.``."""
+    sd: dict = {}
+    sd.update(export_text_encoder(params["text_encoder"], text_layers))
+    sd.update(export_ma_encoder(params["ma_encoder"], ma_layers))
+    gm = params["generate_model"]
+    _put_conv(sd, "generate_model.in_linear", gm["in_linear"], "linear")
+    _put_conv(sd, "generate_model.context_linear", gm["context_linear"], "linear")
+    sd["generate_model.T_positional_embedding"] = _np(gm["T_positional_embedding"])
+    for i in range(dec_layers):
+        sd.update(export_axial_block(gm[f"blocks_{i}"], f"generate_model.blocks.{i}"))
+    _put_conv(sd, "generate_model.out", gm["out"], "linear")
+    sd["conv.0.weight"] = conv2d_weight(params["conv"]["kernel"])
+    sd["speed_embedding"] = _np(params["speed_embedding"])
+    sd["H_positional_embedding"] = _np(params["H_positional_embedding"])[None]
+    sd["W_positional_embedding"] = _np(params["W_positional_embedding"])[None]
+    sd["visual_token_embedding.weight"] = _np(params["visual_token_embedding"]["embedding"])
+    if randomness:
+        for i in range(4):
+            _put_basic_block3d(sd, f"conv3d.{i}", params[f"conv3d_{i}"])
+        _put_conv(sd, "conv_mu2", params["conv_mu2"])
+        _put_conv(sd, "conv_var2", params["conv_var2"])
+        sd["conv_d2.weight"] = conv2d_weight(params["conv_d2"]["kernel"])
+        sd.update(export_adain(params["adain"]))
+    if first_stage is not None:
+        for k, v in first_stage.items():
+            sd[f"first_stage_model.{k}"] = v
+    return sd
+
+
+def load(module: torch.nn.Module, sd: Mapping[str, np.ndarray]) -> torch.nn.Module:
+    """Strict-load a numpy state dict into ``module`` (values are copied into
+    its parameters, keeping their device and dtype)."""
+    module.load_state_dict(to_torch(sd), strict=True)
+    return module
+
+
+def load_pipeline(pipeline, params: Mapping[str, Any], fs_variables: Mapping[str, Any],
+                  *, text_layers: int, ma_layers: int, dec_layers: int):
+    """Strict-load a JAX ``MagePipeline``'s core params and first-stage
+    variables into the port's ``MagePipeline``."""
+    sd = export_mage_core(params, randomness=pipeline.core.randomness,
+                          text_layers=text_layers, ma_layers=ma_layers,
+                          dec_layers=dec_layers, first_stage=export_vqvae(fs_variables))
+    pipeline.load_state_dict(to_torch(sd))
+    return pipeline

@@ -1,0 +1,275 @@
+"""Stage-2 building blocks: attention, axial blocks, text encoder, AdaIN.
+
+Port of ``mage_tpu/models/layers.py`` for generation (eval mode, dropout
+off). Parameter names are the reference state-dict keys: attention keeps
+torch's packed ``in_proj_weight``/``in_proj_bias`` and ``out_proj``, the
+text encoder its ``transformer.layers.{i}`` stack, the cross-attention
+block its (unused in MAGE) ``ln_q``/``ln_kv``.
+
+Eval-mode blocks that attend along H or W go through
+``ops.axial_slot_attention``; the temporal blocks of the cached sampler go
+through ``ops.cached_slot_attention`` and write the new slot's K/V into the
+cache in place.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from mage_tpu_torch.ops.axial_attention import axial_slot_attention
+from mage_tpu_torch.ops.cached_attention import cached_slot_attention
+
+NEG_INF = -1e9  # additive mask value, as in the JAX package
+
+
+def quick_gelu(x: torch.Tensor) -> torch.Tensor:
+    """x * sigmoid(1.702 x)."""
+    return x * torch.sigmoid(1.702 * x)
+
+
+class MultiHeadAttention(nn.Module):
+    """Multi-head attention with an additive bias and a key-padding mask
+    (True = masked), keyed like ``torch.nn.MultiheadAttention``. Inputs are
+    (..., L, D); heads split as (..., L, heads, hd)."""
+
+    def __init__(self, d_model: int, n_head: int):
+        super().__init__()
+        self.d_model = d_model
+        self.n_head = n_head
+        self.in_proj_weight = nn.Parameter(torch.empty(3 * d_model, d_model))
+        self.in_proj_bias = nn.Parameter(torch.empty(3 * d_model))
+        self.out_proj = nn.Linear(d_model, d_model)
+
+    def _proj(self, x: torch.Tensor, i: int) -> torch.Tensor:
+        d = self.d_model
+        return F.linear(x, self.in_proj_weight[i * d:(i + 1) * d],
+                        self.in_proj_bias[i * d:(i + 1) * d])
+
+    def project_q(self, x):
+        return self._proj(x, 0)
+
+    def project_kv(self, x):
+        return self._proj(x, 1), self._proj(x, 2)
+
+    def attend(self, q, k, v, bias: Optional[torch.Tensor] = None,
+               key_padding_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Projected (..., Lq, D) q and (..., Lk, D) k, v -> (..., Lq, D)."""
+        h = self.n_head
+        hd = self.d_model // h
+        qh = q.unflatten(-1, (h, hd))
+        kh = k.unflatten(-1, (h, hd))
+        vh = v.unflatten(-1, (h, hd))
+        scores = torch.einsum("...qhd,...khd->...hqk", qh, kh) / math.sqrt(hd)
+        if bias is not None:
+            scores = scores + bias.to(scores.dtype)  # an f32 bias must not promote bf16
+        if key_padding_mask is not None:
+            scores = scores + torch.where(
+                key_padding_mask[:, None, None, :], NEG_INF, 0.0).to(scores.dtype)
+        w = torch.softmax(scores, dim=-1)
+        out = torch.einsum("...hqk,...khd->...qhd", w, vh)
+        return self.out_proj(out.flatten(-2))
+
+    def forward(self, q, k, v, bias=None, key_padding_mask=None):
+        return self.attend(self.project_q(q), self._proj(k, 1), self._proj(v, 2),
+                           bias=bias, key_padding_mask=key_padding_mask)
+
+
+class MLP(nn.Module):
+    """d -> 4d -> d with QuickGELU."""
+
+    def __init__(self, d_model: int):
+        super().__init__()
+        self.c_fc = nn.Linear(d_model, 4 * d_model)
+        self.c_proj = nn.Linear(4 * d_model, d_model)
+
+    def forward(self, x):
+        return self.c_proj(quick_gelu(self.c_fc(x)))
+
+
+class AxialAttentionBlock(nn.Module):
+    """Pre-LN self-attention + MLP along one axis of (B, T, H, W, C)
+    (``axial_dim``: 1 = T, 2 = H, 3 = W), eval mode."""
+
+    def __init__(self, d_model: int, n_head: int, axial_dim: int = 1):
+        super().__init__()
+        self.n_head = n_head
+        self.axial_dim = axial_dim
+        self.attn = MultiHeadAttention(d_model, n_head)
+        self.ln_1 = nn.LayerNorm(d_model, eps=1e-5)
+        self.ln_2 = nn.LayerNorm(d_model, eps=1e-5)
+        self.mlp = MLP(d_model)
+
+    def forward(self, x: torch.Tensor, attn_bias: Optional[torch.Tensor] = None):
+        axis = self.axial_dim if self.axial_dim > 0 else self.axial_dim + x.ndim
+        moved = torch.movedim(x, axis, -2)  # (..., S, C)
+        shape = moved.shape
+        seq = moved.reshape(-1, shape[-2], shape[-1])
+        h = self.ln_1(seq)
+        if attn_bias is None:
+            # unmasked axis: the flat (G, S, D) attention op (kernel on CUDA)
+            g, s = h.shape[0], h.shape[1]
+            q = self.attn.project_q(h)
+            k, v = self.attn.project_kv(h)
+            attn_out = self.attn.out_proj(
+                axial_slot_attention(q, k, v, self.n_head).reshape(g, s, -1))
+        else:
+            attn_out = self.attn(h, h, h, bias=attn_bias)
+        seq = seq + attn_out
+        seq = seq + self.mlp(self.ln_2(seq))
+        return torch.movedim(seq.reshape(shape), -2, axis)
+
+    def incremental_temporal(self, x_slot: torch.Tensor, cache_k: torch.Tensor,
+                             cache_v: torch.Tensor, pos: int) -> torch.Tensor:
+        """One new temporal slot (B, H, W, C) of a causal T-block: writes its
+        K/V into slot ``pos`` of the time-major (L, B*H*W, C) caches and
+        attends over slots <= pos. The caches are updated in place, which
+        saves the copy of the whole cache that a functional update makes."""
+        b, hgt, wdt, c = x_slot.shape
+        n = b * hgt * wdt
+        seq = x_slot.reshape(n, c)
+        h = self.ln_1(seq)
+        q = self.attn.project_q(h)
+        k, v = self.attn.project_kv(h)
+        cache_k[pos].copy_(k)
+        cache_v[pos].copy_(v)
+        attn_out = self.attn.out_proj(
+            cached_slot_attention(q, cache_k, cache_v, pos, self.n_head))
+        seq = seq + attn_out
+        seq = seq + self.mlp(self.ln_2(seq))
+        return seq.reshape(b, hgt, wdt, c)
+
+    def single_slot_spatial(self, x_slot: torch.Tensor) -> torch.Tensor:
+        """Run this H- or W-axis block on one temporal slot (B, H, W, C)."""
+        return self(x_slot[:, None])[:, 0]
+
+
+class CrossAttentionBlock(nn.Module):
+    """q x (k, v) cross-attention + MLP, the MAGE variant (no LN on q/kv).
+    ``ln_q``/``ln_kv`` exist only so reference checkpoints load strictly."""
+
+    def __init__(self, d_model: int, n_head: int):
+        super().__init__()
+        self.attn = MultiHeadAttention(d_model, n_head)
+        self.ln_2 = nn.LayerNorm(d_model, eps=1e-5)
+        self.mlp = MLP(d_model)
+        self.ln_q = nn.LayerNorm(d_model, eps=1e-5)
+        self.ln_kv = nn.LayerNorm(d_model, eps=1e-5)
+
+    def forward(self, q, k, v):
+        x = q + self.attn(q, k, v)
+        return x + self.mlp(self.ln_2(x))
+
+
+class MAEncoder(nn.Module):
+    """Motion-anchor encoder: ``layers`` cross-attention blocks, queries =
+    first-frame tokens, keys/values = text embeddings."""
+
+    def __init__(self, layers: int = 1, d_model: int = 512):
+        super().__init__()
+        self.blocks = nn.ModuleList(
+            CrossAttentionBlock(d_model, d_model // 32) for _ in range(layers))
+
+    def forward(self, x, kv):
+        for block in self.blocks:
+            x = block(x, kv, kv)
+        return x
+
+
+class _TorchStyleEncoderLayer(nn.Module):
+    """Post-LN encoder layer of ``torch.nn.TransformerEncoderLayer`` (exact
+    gelu MLP), eval mode."""
+
+    def __init__(self, width: int, n_head: int):
+        super().__init__()
+        self.self_attn = MultiHeadAttention(width, n_head)
+        self.norm1 = nn.LayerNorm(width, eps=1e-5)
+        self.norm2 = nn.LayerNorm(width, eps=1e-5)
+        self.linear1 = nn.Linear(width, 4 * width)
+        self.linear2 = nn.Linear(4 * width, width)
+
+    def forward(self, x, key_padding_mask=None):
+        x = self.norm1(x + self.self_attn(x, x, x, key_padding_mask=key_padding_mask))
+        h = self.linear2(F.gelu(self.linear1(x)))
+        return self.norm2(x + h)
+
+
+class _EncoderStack(nn.Module):
+    def __init__(self, layers):
+        super().__init__()
+        self.layers = nn.ModuleList(layers)
+
+
+class TransformerTextEncoder(nn.Module):
+    """Token + position embeddings -> LN -> zero pad positions -> post-LN
+    encoder stack with key-padding mask -> final LN -> projection."""
+
+    def __init__(self, vocab_size: int = 30, transformer_width: int = 512,
+                 transformer_layers: int = 2, output_dim: int = 512,
+                 context_length: int = 32, padding_idx: int = 0):
+        super().__init__()
+        self.padding_idx = padding_idx
+        self.token_embedding = nn.Embedding(vocab_size, transformer_width)
+        self.positions = nn.Embedding(context_length, transformer_width)
+        self.layer_norm = nn.LayerNorm(transformer_width, eps=1e-8)
+        self.transformer = _EncoderStack(
+            _TorchStyleEncoderLayer(transformer_width, transformer_width // 32)
+            for _ in range(transformer_layers))
+        self.ln_text_final = nn.LayerNorm(transformer_width, eps=1e-5)
+        self.text_projection = nn.Linear(transformer_width, output_dim)
+
+    def forward(self, text: torch.Tensor) -> torch.Tensor:
+        text = text.long()
+        positions = torch.arange(text.shape[-1], device=text.device)[None, :]
+        x = self.layer_norm(self.token_embedding(text) + self.positions(positions))
+        token_mask = text != self.padding_idx
+        x = x * token_mask[..., None].to(x.dtype)
+        # positions at or after the caption length are masked in attention
+        text_length = token_mask.sum(dim=-1, keepdim=True)
+        caption_mask = text_length < torch.cumsum(torch.ones_like(text), dim=-1)
+        for layer in self.transformer.layers:
+            x = layer(x, key_padding_mask=caption_mask)
+        return self.text_projection(self.ln_text_final(x))
+
+
+class BasicBlock3D(nn.Module):
+    """3D-conv residual block of the posterior pyramid. Generation never
+    runs it; it holds the parameters so ``conv3d.*`` loads strictly, and its
+    forward comes with training (ROADMAP A6)."""
+
+    def __init__(self, in_planes: int, out_planes: int):
+        super().__init__()
+        self.conv1 = nn.Conv3d(in_planes, out_planes, 3, padding=1, bias=False)
+        self.bn1 = nn.GroupNorm(16, out_planes, eps=1e-5)
+        self.conv2 = nn.Conv3d(out_planes, out_planes, 3, padding=1, bias=False)
+        self.bn2 = nn.GroupNorm(16, out_planes, eps=1e-5)
+        self.downsample = nn.Sequential(
+            nn.Conv3d(in_planes, out_planes, 3, padding=1, bias=False),
+            nn.GroupNorm(16, out_planes, eps=1e-5),
+        )
+
+
+class AdaIN2D(nn.Module):
+    """Instance norm over (H, W) without affine, modulated by per-pixel
+    gamma/beta predicted by two 3x3 convs each from a conditioning map. NHWC."""
+
+    def __init__(self, num_features: int):
+        super().__init__()
+        c = num_features
+        self.conv_mu = nn.Sequential(nn.Conv2d(c, c, 3, padding=1),
+                                     nn.Conv2d(c, c, 3, padding=1))
+        self.conv_var = nn.Sequential(nn.Conv2d(c, c, 3, padding=1),
+                                      nn.Conv2d(c, c, 3, padding=1))
+
+    def forward(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        mean = x.mean(dim=(1, 2), keepdim=True)
+        var = x.var(dim=(1, 2), keepdim=True, unbiased=False)
+        out = (x - mean) * torch.rsqrt(var + 1e-5)
+        y = y.permute(0, 3, 1, 2)
+        gamma = self.conv_mu(y).permute(0, 2, 3, 1)
+        beta = self.conv_var(y).permute(0, 2, 3, 1)
+        return gamma * out + beta

@@ -1,0 +1,7 @@
+from mage_tpu_torch.ops.axial_attention import axial_slot_attention
+from mage_tpu_torch.ops.cached_attention import cached_slot_attention
+from mage_tpu_torch.ops.vq import (
+    codebook_lookup,
+    nearest_codebook_indices,
+    nearest_with_codes,
+)
