@@ -6,15 +6,17 @@ fatal on failure (exit code 1; 2 when there is no GPU or no package):
 
 1. the card's name and power limit, as ``nvidia-smi`` reports them;
 2. build the Hopper kernels from ``mage_tpu_torch/csrc`` with ``nvcc``;
-3. each kernel at the main path's shapes, in bf16 and f32, against its plain
+3. each kernel at its path's shapes, in bf16 and f32, against its plain
    PyTorch version on the same inputs (TF32 off), and timed beside the plain
    version and, where one exists, a single PyTorch library call;
-4. the main path: ``MagePipeline.generate`` for ``config/mage_caterv1.yaml``
+4. the MAGE path: ``MagePipeline.generate`` for ``config/mage_caterv1.yaml``
    at full width, 16 frames, batch 32, bf16, random weights from a seed,
    with the kernels' launch counts read around one call;
 5. a small f32 input through the same pipeline on the GPU and on the CPU
    (plain versions), which must agree;
-6. one JSON line with every kernel's numbers, then the closing JSON line.
+6. the MAGE+ path: the same for ``config/mage+_caterv2.yaml`` (KL-AE first
+   stage, continuous latents, cached sampler), and its f32 GPU-vs-CPU check;
+7. one JSON line with every kernel's numbers, then the closing JSON line.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ import traceback
 # H100 SXM data-sheet peaks (at its 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+BF16_TC_FLOP_PER_S = 989e12  # dense bf16 on the tensor cores
 
 BATCH, FRAMES, RES = 32, 16, 128
 VQ_N, VQ_K, VQ_D = BATCH * 16 * 16, 512, 1024  # first-frame tokens, codebook
@@ -38,6 +41,12 @@ AX_G, AX_S, AX_D, HEADS = BATCH * 16, 16, 512, 16  # one spatial block per slot
 CA_N, CA_L, CA_D = BATCH * 16 * 16, FRAMES, 512  # one temporal block per slot
 BF16_RTOL = 2.0 ** -7  # one bf16 rounding step of the output
 F32_TOL = 1e-5
+# the KL decoder's fused GroupNorm-SiLU-conv3x3 sites per 96-frame chunk:
+# (H = W, C, Cout) -> calls; 480 generated frames make 5 chunks
+KL_CHUNK = 96
+GN_CONV_SITES = {(16, 512, 512): 10, (32, 512, 512): 6, (64, 512, 256): 1,
+                 (64, 256, 256): 5, (128, 256, 128): 1, (128, 128, 128): 5}
+GN_BF16_ATOL = 1e-3  # an activation that rounds to the neighbouring bf16 value
 
 
 def log(msg: str) -> None:
@@ -60,8 +69,9 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+def bound_ms(nbytes: float, flops: float,
+             flop_per_s: float = F32_FLOP_PER_S) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / flop_per_s
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -179,6 +189,80 @@ def check_cached(torch, F, ca, gen) -> dict:
     }
 
 
+def check_gn_conv(torch, F, gc, gen) -> dict:
+    """Each decoder site class at the 96-frame chunk, in bf16 and f32, kernel
+    against the plain version (TF32 off): f32 within 1e-5 of the output's
+    largest magnitude (sums of up to 4608 products in another order), bf16
+    within one rounding step plus ``GN_BF16_ATOL``. Timed in bf16 beside the
+    plain version, cuDNN's conv alone on the already-activated input (it
+    does less work: no statistics, no affine, no SiLU), and the unfused bf16
+    chain the kernel replaces: ``F.group_norm``, SiLU and a channels-last
+    cuDNN conv, as the encoder's and a train-mode block's chains run."""
+    per_class, err = [], 0.0
+    totals = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "conv_only_ms": 0.0,
+              "unfused_ms": 0.0}
+    bytes_total = flops_total = 0.0
+    for (hw, c, cout), calls in GN_CONV_SITES.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            x = (torch.randn(KL_CHUNK, hw, hw, c, generator=gen, device="cuda") * 2
+                 + 0.5).to(dtype)
+            gamma = torch.randn(c, generator=gen, device="cuda") * 0.5 + 1
+            beta = torch.randn(c, generator=gen, device="cuda") * 0.2
+            weight = torch.randn(cout, c, 3, 3, generator=gen, device="cuda") / (9 * c) ** 0.5
+            bias = torch.randn(cout, generator=gen, device="cuda") * 0.1
+            args = (x, gamma, beta, weight, bias)
+            got = gc.gn_silu_conv3x3(*args).float()
+            want = gc.gn_silu_conv3x3(*args, impl="torch").float()
+            e = float((got - want).abs().max())
+            if dtype == torch.float32:
+                ok = e <= F32_TOL * float(want.abs().max())
+            else:
+                ok = torch.allclose(got, want, rtol=BF16_RTOL, atol=GN_BF16_ATOL)
+                err = max(err, e)
+            if not ok:
+                raise AssertionError(f"gn_conv {dtype} H={hw} {c}->{cout}: max abs err {e}")
+            del got, want
+        a, b = gc.gn_affine_rows(x, gamma, beta, 32, 1e-6)
+        h = F.silu(x.float() * a[:, None, None, :] + b[:, None, None, :]).to(x.dtype)
+        h = h.permute(0, 3, 1, 2)  # channels-last NCHW view
+        w_cl = weight.to(x.dtype).contiguous(memory_format=torch.channels_last)
+        b16 = bias.to(x.dtype)
+        xn, g16, be16 = x.permute(0, 3, 1, 2), gamma.to(x.dtype), beta.to(x.dtype)
+        nbytes = (x.numel() + KL_CHUNK * hw * hw * cout + weight.numel()) * 2 + (
+            2 * KL_CHUNK * c + cout) * 4
+        flops = 2.0 * KL_CHUNK * hw * hw * 9 * c * cout
+        bnd, _ = bound_ms(nbytes, flops, BF16_TC_FLOP_PER_S)
+        row = {"H": hw, "C": c, "Cout": cout, "calls_per_chunk": calls,
+               "ms": time_ms(lambda: gc.gn_silu_conv3x3(*args), iters=10),
+               "plain_ms": time_ms(lambda: gc.gn_silu_conv3x3(*args, impl="torch"), iters=3),
+               "conv_only_ms": time_ms(lambda: F.conv2d(h, w_cl, b16, padding=1), iters=10),
+               "unfused_ms": time_ms(lambda: F.conv2d(
+                   F.silu(F.group_norm(xn, 32, g16, be16, 1e-6)), w_cl, b16, padding=1),
+                   iters=10),
+               "bound_ms": bnd}
+        row["tflop_per_s"] = flops / row["ms"] * 1e-9
+        per_class.append(row)
+        n = calls * (BATCH * (FRAMES - 1) // KL_CHUNK)  # launches per generate
+        for key in totals:
+            totals[key] += n * row[key]
+        bytes_total += n * nbytes
+        flops_total += n * flops
+        del x, h, xn, args
+    log("gn_conv per class (bf16, 96-frame chunk): " + json.dumps(per_class))
+    log("gn_conv per generate (140 launches, bf16): " + json.dumps(totals))
+    n_gen = sum(GN_CONV_SITES.values()) * (BATCH * (FRAMES - 1) // KL_CHUNK)
+    _, by = bound_ms(bytes_total, flops_total, BF16_TC_FLOP_PER_S)
+    return {
+        "name": "gn_silu_conv3x3", "route": "cuda", "source": "mage_tpu_torch/csrc/gn_conv.cu",
+        "replaces": "mage_tpu/ops/gn_conv.py:60", "max_abs_err": err,
+        # launch-weighted means over one generate's 140 calls
+        "ms": totals["ms"] / n_gen, "plain_ms": totals["plain_ms"] / n_gen,
+        "bound_ms": totals["bound_ms"] / n_gen, "bound_by": by, "library_ms": None,
+        "conv_only_ms": totals["conv_only_ms"] / n_gen,
+        "unfused_ms": totals["unfused_ms"] / n_gen,
+    }
+
+
 def make_batch(np, batch: int, context: int, seed: int = 0) -> dict:
     """The JAX bench's inputs: random frames, a 4-word caption, a speed."""
     rng = np.random.RandomState(seed)
@@ -190,22 +274,34 @@ def make_batch(np, batch: int, context: int, seed: int = 0) -> dict:
             "text": text, "speed": rng.rand(batch).astype(np.float32)}
 
 
-def run_main_path(torch, np, build_pipeline, kernels, card: str) -> dict:
-    pipe = build_pipeline("config/mage_caterv1.yaml", FRAMES, device="cuda", seed=0)
+def live_head(torch, pipe, seed: int = 5) -> None:
+    """JAX zero-initialises the continuous head's 1x1x1 conv, which would
+    make every generated latent 0 and the decode run on zeros: give it seeded
+    normal(0.02) values, in the weight's own dtype and device."""
+    w = pipe.core.generate_model.out[2].weight
+    with torch.no_grad():
+        w.copy_(torch.randn(w.shape, generator=torch.Generator().manual_seed(seed)) * 0.02)
+
+
+def run_main_path(torch, np, build_pipeline, kernels, card: str,
+                  config: str = "config/mage_caterv1.yaml", want=None) -> dict:
+    """One path at full width: launch counts around one ``generate``, output
+    checks, frames/s (median of 3), peak memory and the stage split."""
+    pipe = build_pipeline(config, FRAMES, device="cuda", seed=0)
+    if not pipe.use_cids:
+        live_head(torch, pipe)
     pipe.to(dtype=torch.bfloat16)  # both stages, as the JAX bench casts them
     batch = make_batch(np, BATCH, pipe.core.text_encoder.positions.num_embeddings)
     gen = torch.Generator(device="cuda")
-    video = pipe.generate(batch, generator=gen.manual_seed(1))  # warm-up
+    video = pipe.generate(batch, generator=gen.manual_seed(1), cached=True)  # warm-up
     torch.cuda.synchronize()
 
     for kern in kernels.values():
         kern.launches = 0
-    video = pipe.generate(batch, generator=gen.manual_seed(1))
+    video = pipe.generate(batch, generator=gen.manual_seed(1), cached=True)
     torch.cuda.synchronize()
     launches = {name: kern.launches for name, kern in kernels.items()}
-    log(f"main path launches per generate: {launches}")
-    want = {"vq_nearest": 1, "axial_slot_attention": 4 * FRAMES,
-            "cached_slot_attention": 2 * FRAMES}
+    log(f"{config} launches per generate: {launches}")
     if launches != want:
         raise AssertionError(f"launch counts {launches}, expected {want}")
     if tuple(video.shape) != (BATCH, FRAMES, RES, RES, 3):
@@ -218,34 +314,46 @@ def run_main_path(torch, np, build_pipeline, kernels, card: str) -> dict:
     for i in range(3):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        pipe.generate(batch, generator=gen.manual_seed(2 + i))
+        pipe.generate(batch, generator=gen.manual_seed(2 + i), cached=True)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     gen_frames = BATCH * (FRAMES - 1)
     result = {
-        "generated_frames_per_s": gen_frames / statistics.median(times),
+        "config": config, "generated_frames_per_s": gen_frames / statistics.median(times),
         "generate_s": times, "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
         "card": card, "batch": BATCH, "frames_length": FRAMES, "dtype": "bfloat16",
-        "stage_ms": stage_breakdown(torch, pipe, batch, gen),
+        "sampler": "cached", "stage_ms": stage_breakdown(torch, pipe, batch, gen),
     }
-    log("main path: " + json.dumps(result))
+    log("path: " + json.dumps(result))
     return launches
 
 
 def stage_breakdown(torch, pipe, batch, gen) -> dict:
     """Device time of the three stages ``generate`` runs, by CUDA events
-    around the same calls it makes (median of 3)."""
+    around the same calls it makes (median of 3). For MAGE+ it also checks
+    that the generated latents are not all equal (a live head)."""
     first = torch.from_numpy(batch["images"][:, :1]).to("cuda", torch.bfloat16)
     text = torch.from_numpy(batch["text"]).cuda()
     speed = torch.from_numpy(batch["speed"]).to("cuda", torch.bfloat16)
+
+    def encode():
+        if pipe.first_stage.is_discrete:
+            return pipe.first_stage.encode(first)
+        return pipe.first_stage.encode(first, generator=gen.manual_seed(1)).to(pipe.dtype)
+
     stages = {
-        "first_frame_encode": lambda: pipe.first_stage.encode(first),
+        "first_frame_encode": encode,
         "ar_core": lambda: pipe.core.generate_cached(
             lat0, text, speed, generator=gen.manual_seed(1)),
-        "frame_decode": lambda: pipe.first_stage.decode(ids),
+        "frame_decode": lambda: pipe.first_stage.decode(latents),
     }
     lat0 = stages["first_frame_encode"]()
-    ids = stages["ar_core"]()
+    latents = stages["ar_core"]()
+    if not pipe.use_cids:
+        spread = float(latents.float().std())
+        log(f"MAGE+ generated latents: shape {tuple(latents.shape)}, std {spread:.4g}")
+        if not (spread > 0 and bool(torch.isfinite(latents.float()).all())):
+            raise AssertionError("MAGE+ latents are constant or not finite")
     out = {}
     for name, fn in stages.items():
         runs = []
@@ -288,6 +396,33 @@ def run_reference_check(torch, np, build_pipeline) -> None:
         raise AssertionError("the GPU pipeline disagrees with the CPU reference")
 
 
+def run_magep_reference_check(torch, np, build_pipeline) -> None:
+    """Batch 1, f32: the MAGE+ path on the GPU (kernels) against the CPU
+    (plain versions) with the same posterior and prior noise; two generated
+    frames are decoded, which keeps the CPU decode short."""
+    batch = make_batch(np, 1, 38, seed=6)
+    cpu_gen = torch.Generator().manual_seed(7)
+    post_noise = torch.randn(1, 1, 16, 16, 4, generator=cpu_gen)
+    video_noise = torch.randn(1, 16, 16, 64, generator=cpu_gen)
+    outs = {}
+    for device in ("cuda", "cpu"):
+        pipe = build_pipeline("config/mage+_caterv2.yaml", FRAMES, device=device, seed=0)
+        live_head(torch, pipe)
+        first = torch.from_numpy(batch["images"][:, :1]).to(device)
+        lat0 = pipe.first_stage.encode(first, post_noise.to(device))
+        latents = pipe.core.generate_cached(
+            lat0, torch.from_numpy(batch["text"]).to(device),
+            torch.from_numpy(batch["speed"]).to(device), video_noise=video_noise.to(device))
+        frames = pipe.first_stage.decode(latents[:, :2])
+        outs[device] = (latents.cpu(), frames.cpu())
+    lat_err = float((outs["cuda"][0] - outs["cpu"][0]).abs().max())
+    frame_err = float((outs["cuda"][1] - outs["cpu"][1]).abs().max())
+    log(f"MAGE+ f32 GPU vs CPU: max |latents| diff {lat_err:.3g} (latent std "
+        f"{float(outs['cpu'][0].std()):.3g}), max |frames| diff {frame_err:.3g}")
+    if not (lat_err < 1e-4 and frame_err < 1e-3):
+        raise AssertionError("the GPU MAGE+ pipeline disagrees with the CPU reference")
+
+
 def main() -> int:
     import torch
 
@@ -305,6 +440,7 @@ def main() -> int:
         from mage_tpu_torch.models.pipeline import build_pipeline
         from mage_tpu_torch.ops import axial_attention as ax
         from mage_tpu_torch.ops import cached_attention as ca
+        from mage_tpu_torch.ops import gn_conv as gc
         from mage_tpu_torch.ops import vq
     except ImportError as e:
         print(f"chip_smoke: the mage_tpu_torch package is missing ({e})", file=sys.stderr)
@@ -327,24 +463,36 @@ def main() -> int:
 
         gen = torch.Generator(device="cuda").manual_seed(0)
         rows = [check_vq(torch, vq, gen), check_axial(torch, F, ax, gen),
-                check_cached(torch, F, ca, gen)]
+                check_cached(torch, F, ca, gen), check_gn_conv(torch, F, gc, gen)]
         kernels = {"vq_nearest": vq.KERNEL, "axial_slot_attention": ax.KERNEL,
-                   "cached_slot_attention": ca.KERNEL}
-        launches = run_main_path(torch, np, build_pipeline, kernels, smi)
-        for row in rows:
-            row["launches"] = launches[row["name"]]
+                   "cached_slot_attention": ca.KERNEL, "gn_silu_conv3x3": gc.KERNEL}
+        mage = run_main_path(torch, np, build_pipeline, kernels, smi, want={
+            "vq_nearest": 1, "axial_slot_attention": 4 * FRAMES,
+            "cached_slot_attention": 2 * FRAMES, "gn_silu_conv3x3": 0})
         run_reference_check(torch, np, build_pipeline)
+        n_gn = sum(GN_CONV_SITES.values()) * (BATCH * (FRAMES - 1) // KL_CHUNK)
+        magep = run_main_path(torch, np, build_pipeline, kernels, smi,
+                              "config/mage+_caterv2.yaml", want={
+                                  "vq_nearest": 0, "axial_slot_attention": 4 * FRAMES,
+                                  "cached_slot_attention": 2 * FRAMES,
+                                  "gn_silu_conv3x3": n_gn})
+        for row in rows:  # each kernel's launches on the path that runs it
+            row["launches"] = (magep if row["name"] == "gn_silu_conv3x3" else mage)[row["name"]]
+            row.setdefault("conv_only_ms", None)
+            row.setdefault("unfused_ms", None)
+        run_magep_reference_check(torch, np, build_pipeline)
     except Exception:
         traceback.print_exc()
         return 1
 
     for row in rows:
-        for key in ("ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err"):
+        for key in ("ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err",
+                    "conv_only_ms", "unfused_ms"):
             if row[key] is not None and not math.isfinite(row[key]):
                 print(f"chip_smoke: {row['name']} {key} = {row[key]}", file=sys.stderr)
                 return 1
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "conv_only_ms", "unfused_ms")
     print(json.dumps({"kernels": [{k: row[k] for k in keys} for row in rows]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}),

@@ -7,9 +7,10 @@ kernel on its path with a kernel written by hand for Hopper (``csrc/``,
 built at first use by ``_build``). It imports no JAX and nothing of
 ``mage_tpu``.
 
-This slice covers discrete MAGE generation: the f8 VQ-VAE first stage, the
-text and motion-anchor encoders, and the axial decoder with the naive and
-the KV-cached sampler.
+It covers generation for both models: discrete MAGE (the f8 VQ-VAE first
+stage) and MAGE+ (the KL-autoencoder first stage with continuous latents and
+the causal-GroupNorm head), the text and motion-anchor encoders, and the
+axial decoder with the naive and the KV-cached sampler.
 """
 
 __version__ = "0.1.0"

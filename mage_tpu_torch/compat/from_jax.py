@@ -5,14 +5,18 @@ The port's own numpy-only copy of the JAX package's export logic
 dicts of numpy arrays, become state dicts in the reference PyTorch layout,
 which is the layout of the port's modules (NHWC flax kernels -> NCHW torch,
 DenseGeneral q/k/v -> packed ``in_proj``, and so on). It covers the f8
-VQ-VAE and discrete ``MAGECore`` (``use_cids=True``, ``pre_ln=False``), whose
-``ln_q``/``ln_kv`` are emitted as identity.
+VQ-VAE, ``MAGECore`` for MAGE (``use_cids=True``, ``pre_ln=False``, whose
+``ln_q``/``ln_kv`` are emitted as identity) and MAGE+ (``use_cids=False``,
+``pre_ln=True``: the continuous head, the latent projection and real
+``ln_q``/``ln_kv``), and the KL autoencoder (``export_autoencoder_kl``, to the
+ldm keys; the JAX package has no exporter for it).
 
 ``load`` and ``load_pipeline`` strict-load the result into the port's modules.
 """
 
 from __future__ import annotations
 
+import re
 from typing import Any, Mapping
 
 import numpy as np
@@ -125,13 +129,17 @@ def export_axial_block(params: Mapping[str, Any], prefix: str = "") -> dict:
     return sd
 
 
-def _put_cross_block(sd, prefix, params):
+def _put_cross_block(sd, prefix, params, pre_ln):
     _put_mha(sd, f"{prefix}.attn", params["attn"])
     _put_ln(sd, f"{prefix}.ln_2", params["ln_2"])
     _put_mlp(sd, f"{prefix}.mlp", params["mlp"])
-    dim = _np(params["attn"]["out_proj"]["bias"]).shape[0]
-    _put_identity_ln(sd, f"{prefix}.ln_q", dim)
-    _put_identity_ln(sd, f"{prefix}.ln_kv", dim)
+    if pre_ln:
+        _put_ln(sd, f"{prefix}.ln_q", params["ln_q"])
+        _put_ln(sd, f"{prefix}.ln_kv", params["ln_kv"])
+    else:
+        dim = _np(params["attn"]["out_proj"]["bias"]).shape[0]
+        _put_identity_ln(sd, f"{prefix}.ln_q", dim)
+        _put_identity_ln(sd, f"{prefix}.ln_kv", dim)
 
 
 def export_text_encoder(te: Mapping[str, Any], text_layers: int,
@@ -155,11 +163,11 @@ def export_text_encoder(te: Mapping[str, Any], text_layers: int,
 
 
 def export_ma_encoder(ma: Mapping[str, Any], ma_layers: int,
-                      prefix: str = "ma_encoder") -> dict:
+                      prefix: str = "ma_encoder", pre_ln: bool = False) -> dict:
     sd: dict = {}
     p = f"{prefix}." if prefix else ""
     for i in range(ma_layers):
-        _put_cross_block(sd, f"{p}blocks.{i}", ma[f"block_{i}"])
+        _put_cross_block(sd, f"{p}blocks.{i}", ma[f"block_{i}"], pre_ln)
     return sd
 
 
@@ -183,26 +191,37 @@ def _put_basic_block3d(sd, prefix, params):
 
 
 def export_mage_core(params: Mapping[str, Any], *, randomness: bool, text_layers: int,
-                     ma_layers: int, dec_layers: int,
+                     ma_layers: int, dec_layers: int, use_cids: bool = True,
+                     pre_ln: bool = False,
                      first_stage: Mapping[str, np.ndarray] | None = None) -> dict:
-    """Discrete ``MAGECore`` params -> reference MAGE state dict;
-    ``first_stage`` (from :func:`export_vqvae`) is merged under
-    ``first_stage_model.``."""
+    """``MAGECore`` params -> reference MAGE state dict; ``first_stage``
+    (from :func:`export_vqvae` or :func:`export_autoencoder_kl`) is merged
+    under ``first_stage_model.``."""
     sd: dict = {}
     sd.update(export_text_encoder(params["text_encoder"], text_layers))
-    sd.update(export_ma_encoder(params["ma_encoder"], ma_layers))
+    sd.update(export_ma_encoder(params["ma_encoder"], ma_layers, pre_ln=pre_ln))
     gm = params["generate_model"]
     _put_conv(sd, "generate_model.in_linear", gm["in_linear"], "linear")
     _put_conv(sd, "generate_model.context_linear", gm["context_linear"], "linear")
     sd["generate_model.T_positional_embedding"] = _np(gm["T_positional_embedding"])
     for i in range(dec_layers):
         sd.update(export_axial_block(gm[f"blocks_{i}"], f"generate_model.blocks.{i}"))
-    _put_conv(sd, "generate_model.out", gm["out"], "linear")
+    if use_cids:
+        _put_conv(sd, "generate_model.out", gm["out"], "linear")
+    else:
+        _put_ln(sd, "generate_model.out.0", gm["out_norm"])
+        kern = _np(gm["out_conv"]["kernel"])  # (I, O) Dense == 1x1x1 conv3d
+        sd["generate_model.out.2.weight"] = kern.T[..., None, None, None]
+        sd["generate_model.out.2.bias"] = _np(gm["out_conv"]["bias"])
     sd["conv.0.weight"] = conv2d_weight(params["conv"]["kernel"])
     sd["speed_embedding"] = _np(params["speed_embedding"])
     sd["H_positional_embedding"] = _np(params["H_positional_embedding"])[None]
     sd["W_positional_embedding"] = _np(params["W_positional_embedding"])[None]
-    sd["visual_token_embedding.weight"] = _np(params["visual_token_embedding"]["embedding"])
+    if use_cids:
+        sd["visual_token_embedding.weight"] = _np(
+            params["visual_token_embedding"]["embedding"])
+    else:
+        _put_conv(sd, "visual_token_embedding", params["visual_token_projection"], "linear")
     if randomness:
         for i in range(4):
             _put_basic_block3d(sd, f"conv3d.{i}", params[f"conv3d_{i}"])
@@ -216,6 +235,60 @@ def export_mage_core(params: Mapping[str, Any], *, randomness: bool, text_layers
     return sd
 
 
+def _put_kl_resnet(sd, prefix, params):
+    for name in ("norm1", "norm2"):
+        _put_ln(sd, f"{prefix}.{name}", params[name])
+    for name in ("conv1", "conv2", "nin_shortcut"):
+        if name in params:
+            _put_conv(sd, f"{prefix}.{name}", params[name])
+
+
+def _put_kl_attn(sd, prefix, params):
+    _put_ln(sd, f"{prefix}.norm", params["norm"])
+    for name in ("q", "k", "v", "proj_out"):
+        _put_conv(sd, f"{prefix}.{name}", params[name])
+
+
+_KL_MID = {"mid_block_1": "mid.block_1", "mid_attn": "mid.attn_1",
+           "mid_block_2": "mid.block_2"}
+
+
+def _kl_key(name: str) -> str:
+    """flax module name -> ldm key: ``down_0_block_1`` -> ``down.0.block.1``,
+    ``up_2_upsample`` -> ``up.2.upsample.conv``, ``mid_attn`` -> ``mid.attn_1``."""
+    m = re.fullmatch(r"(down|up)_(\d+)_(block|attn)_(\d+)", name)
+    if m:
+        return f"{m[1]}.{m[2]}.{m[3]}.{m[4]}"
+    m = re.fullmatch(r"(down|up)_(\d+)_(downsample|upsample)", name)
+    if m:
+        return f"{m[1]}.{m[2]}.{m[3]}.conv"
+    return _KL_MID.get(name, name)
+
+
+def export_autoencoder_kl(variables: Mapping[str, Any]) -> dict:
+    """{params} of a JAX ``AutoencoderKL`` -> ldm ``AutoencoderKL`` state dict
+    (``encoder.down.{i}.block.{j}.conv1.weight``, ``decoder.mid.attn_1.q``,
+    ``quant_conv``, ...), the layout of the port's ``AutoencoderKL``."""
+    params = variables["params"]
+    sd: dict = {}
+    for side in ("encoder", "decoder"):
+        for name, p in params[side].items():
+            key = f"{side}.{_kl_key(name)}"
+            if "norm1" in p:
+                _put_kl_resnet(sd, key, p)
+            elif "proj_out" in p:
+                _put_kl_attn(sd, key, p)
+            elif name.endswith("sample"):
+                _put_conv(sd, key, p["conv"])
+            elif "scale" in p:
+                _put_ln(sd, key, p)
+            else:
+                _put_conv(sd, key, p)
+    _put_conv(sd, "quant_conv", params["quant_conv"])
+    _put_conv(sd, "post_quant_conv", params["post_quant_conv"])
+    return sd
+
+
 def load(module: torch.nn.Module, sd: Mapping[str, np.ndarray]) -> torch.nn.Module:
     """Strict-load a numpy state dict into ``module`` (values are copied into
     its parameters, keeping their device and dtype)."""
@@ -226,9 +299,13 @@ def load(module: torch.nn.Module, sd: Mapping[str, np.ndarray]) -> torch.nn.Modu
 def load_pipeline(pipeline, params: Mapping[str, Any], fs_variables: Mapping[str, Any],
                   *, text_layers: int, ma_layers: int, dec_layers: int):
     """Strict-load a JAX ``MagePipeline``'s core params and first-stage
-    variables into the port's ``MagePipeline``."""
-    sd = export_mage_core(params, randomness=pipeline.core.randomness,
-                          text_layers=text_layers, ma_layers=ma_layers,
-                          dec_layers=dec_layers, first_stage=export_vqvae(fs_variables))
+    variables (VQ-VAE or KL-AE, by the port's first-stage type) into the
+    port's ``MagePipeline``."""
+    export_fs = export_vqvae if pipeline.first_stage.is_discrete else export_autoencoder_kl
+    core = pipeline.core
+    sd = export_mage_core(params, randomness=core.randomness, text_layers=text_layers,
+                          ma_layers=ma_layers, dec_layers=dec_layers,
+                          use_cids=core.use_cids, pre_ln=core.pre_ln,
+                          first_stage=export_fs(fs_variables))
     pipeline.load_state_dict(to_torch(sd))
     return pipeline

@@ -4,7 +4,7 @@ Port of ``mage_tpu/models/layers.py`` for generation (eval mode, dropout
 off). Parameter names are the reference state-dict keys: attention keeps
 torch's packed ``in_proj_weight``/``in_proj_bias`` and ``out_proj``, the
 text encoder its ``transformer.layers.{i}`` stack, the cross-attention
-block its (unused in MAGE) ``ln_q``/``ln_kv``.
+block its ``ln_q``/``ln_kv`` (applied in MAGE+ only).
 
 Eval-mode blocks that attend along H or W go through
 ``ops.axial_slot_attention``; the temporal blocks of the cached sampler go
@@ -149,11 +149,14 @@ class AxialAttentionBlock(nn.Module):
 
 
 class CrossAttentionBlock(nn.Module):
-    """q x (k, v) cross-attention + MLP, the MAGE variant (no LN on q/kv).
-    ``ln_q``/``ln_kv`` exist only so reference checkpoints load strictly."""
+    """q x (k, v) cross-attention + MLP. ``pre_ln=False`` is MAGE (no LN on
+    q/kv; ``ln_q``/``ln_kv`` exist only so reference checkpoints load
+    strictly), ``pre_ln=True`` is MAGE+: ``q + attn(ln_q(q), ln_kv(k),
+    ln_kv(v))``."""
 
-    def __init__(self, d_model: int, n_head: int):
+    def __init__(self, d_model: int, n_head: int, pre_ln: bool = False):
         super().__init__()
+        self.pre_ln = pre_ln
         self.attn = MultiHeadAttention(d_model, n_head)
         self.ln_2 = nn.LayerNorm(d_model, eps=1e-5)
         self.mlp = MLP(d_model)
@@ -161,7 +164,10 @@ class CrossAttentionBlock(nn.Module):
         self.ln_kv = nn.LayerNorm(d_model, eps=1e-5)
 
     def forward(self, q, k, v):
-        x = q + self.attn(q, k, v)
+        if self.pre_ln:
+            x = q + self.attn(self.ln_q(q), self.ln_kv(k), self.ln_kv(v))
+        else:
+            x = q + self.attn(q, k, v)
         return x + self.mlp(self.ln_2(x))
 
 
@@ -169,10 +175,10 @@ class MAEncoder(nn.Module):
     """Motion-anchor encoder: ``layers`` cross-attention blocks, queries =
     first-frame tokens, keys/values = text embeddings."""
 
-    def __init__(self, layers: int = 1, d_model: int = 512):
+    def __init__(self, layers: int = 1, d_model: int = 512, pre_ln: bool = False):
         super().__init__()
         self.blocks = nn.ModuleList(
-            CrossAttentionBlock(d_model, d_model // 32) for _ in range(layers))
+            CrossAttentionBlock(d_model, d_model // 32, pre_ln) for _ in range(layers))
 
     def forward(self, x, kv):
         for block in self.blocks:

@@ -1,16 +1,20 @@
 """MAGE stage 2: the causal axial spatio-temporal transformer, for generation.
 
-Port of ``mage_tpu/models/mage.py`` (discrete head): ``FlatAxialDecoder``
-with its full forward and the single-slot cached decode, and ``MAGECore``
-with the motion anchor and the two greedy samplers. ``generate`` re-runs the
+Port of ``mage_tpu/models/mage.py``: ``FlatAxialDecoder`` with its full
+forward and the single-slot cached decode, and ``MAGECore`` with the motion
+anchor and the two samplers, for discrete ids (MAGE, ``use_cids=True``) and
+continuous latents (MAGE+, ``use_cids=False``). ``generate`` re-runs the
 whole decoder per frame as the reference loop does; ``generate_cached``
 keeps a time-major (L, B*h*w, C) K/V cache per temporal block and decodes
-one slot per step, which is exact for discrete ids.
+one slot per step, which is exact for discrete ids. The continuous head's
+GroupNorm normalises over every slot of the buffer in ``generate``; in
+``generate_cached`` its statistics accumulate causally over the slots
+generated so far (``head_causal``), as in the JAX package.
 
 Parameter names are the reference state-dict keys (``generate_model.*``,
 ``text_encoder.*``, ``ma_encoder.*``, ``conv.0.weight`` and so on). The
-training forward, the posterior pyramid, the quantized KV cache and the
-continuous (MAGE+) head come in later slices (ROADMAP A4, A6, A7).
+training forward, the posterior pyramid and the quantized KV cache come in
+later slices (ROADMAP A4, A6).
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from mage_tpu_torch.models.layers import (
@@ -30,29 +35,74 @@ from mage_tpu_torch.models.layers import (
 )
 
 
+GN_GROUPS = 32  # groups of the continuous head's GroupNorm
+
+
 def causal_temporal_bias(length: int, dtype=torch.float32, device=None) -> torch.Tensor:
     """Additive upper-triangular mask: -1e9 above the diagonal, 0 elsewhere."""
     return torch.triu(torch.full((length, length), NEG_INF, dtype=dtype, device=device),
                       diagonal=1)
 
 
+def causalizable_group_norm(x: torch.Tensor, norm: nn.GroupNorm,
+                            mean: Optional[torch.Tensor] = None,
+                            var: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """GroupNorm of a channels-last (B, ..., C) tensor over every non-batch
+    dim (torch ``nn.GroupNorm`` semantics), or with given (B, groups)
+    statistics ``mean``/``var``; the normalisation runs in x's dtype."""
+    c, g = x.shape[-1], norm.num_groups
+    xg = x.reshape(x.shape[0], -1, g, c // g)
+    if mean is None:
+        mean = xg.mean(dim=(1, 3))
+        var = xg.var(dim=(1, 3), unbiased=False)
+    xn = (xg - mean[:, None, :, None]) * torch.rsqrt(var[:, None, :, None] + norm.eps)
+    return xn.reshape(x.shape) * norm.weight + norm.bias
+
+
+def group_moments(x: torch.Tensor, num_groups: int):
+    """Element count, sum and sum of squares per (batch, group) of one slot
+    (B, h, w, C), in f32 whatever x's dtype: the E[x^2] - E[x]^2 form cancels
+    catastrophically in bf16."""
+    b, c = x.shape[0], x.shape[-1]
+    xg = x.reshape(b, -1, num_groups, c // num_groups).float()
+    return xg.shape[1] * xg.shape[3], xg.sum(dim=(1, 3)), (xg * xg).sum(dim=(1, 3))
+
+
 class FlatAxialDecoder(nn.Module):
     """``layers`` axial blocks cycling T, H, W (``i % 3``); T-blocks are
     causal. The motion anchor is pseudo-frame 0; outputs predict frames
-    1..L-1 (discrete logits)."""
+    1..L-1: logits (``use_cids``) or continuous latents. The continuous head
+    is GroupNorm -> silu -> 1x1x1 conv, keyed ``out.0`` and ``out.2``."""
 
     def __init__(self, in_channels: int, model_channels: int, out_channels: int,
-                 frames_length: int, layers: int, context_channels: Optional[int] = None):
+                 frames_length: int, layers: int, context_channels: Optional[int] = None,
+                 use_cids: bool = True):
         super().__init__()
         mc = model_channels
         self.frames_length = frames_length
         self.model_channels = mc
+        self.use_cids = use_cids
         self.in_linear = nn.Linear(in_channels, mc)
         self.context_linear = nn.Linear(context_channels or mc, mc)
         self.T_positional_embedding = nn.Parameter(torch.empty(frames_length, 1, 1, mc))
         self.blocks = nn.ModuleList(
             AxialAttentionBlock(mc, mc // 32, axial_dim=i % 3 + 1) for i in range(layers))
-        self.out = nn.Linear(mc, out_channels)
+        if use_cids:
+            self.out = nn.Linear(mc, out_channels)
+        else:
+            self.out = nn.Sequential(nn.GroupNorm(GN_GROUPS, mc, eps=1e-5), nn.SiLU(),
+                                     nn.Conv3d(mc, out_channels, 1))
+
+    def head(self, x: torch.Tensor) -> torch.Tensor:
+        """The head on (B, ..., mc); the continuous GroupNorm takes its
+        statistics over all of x's non-batch dims."""
+        if self.use_cids:
+            return self.out(x)
+        return self._out_conv(causalizable_group_norm(x, self.out[0]))
+
+    def _out_conv(self, h: torch.Tensor) -> torch.Tensor:
+        conv = self.out[2]
+        return F.linear(F.silu(h), conv.weight.flatten(1), conv.bias)
 
     def forward(self, motion: torch.Tensor, imgs: torch.Tensor) -> torch.Tensor:
         """motion (B, h, w, Cctx); imgs (B, L-1, h, w, Cin) -> (B, L-1, h, w, out)."""
@@ -61,7 +111,7 @@ class FlatAxialDecoder(nn.Module):
         bias = causal_temporal_bias(self.frames_length, x.dtype, x.device)
         for i, block in enumerate(self.blocks):
             x = block(x, attn_bias=bias if i % 3 == 0 else None)
-        return self.out(x[:, 1:])
+        return self.head(x[:, 1:])
 
     def init_cache(self, batch: int, h: int, w: int, dtype, device) -> dict:
         """Empty time-major (L, B*h*w, C) K/V caches, one pair per T-block."""
@@ -90,12 +140,34 @@ class FlatAxialDecoder(nn.Module):
         """Discrete head on one trunk slot (B, h, w, mc) -> logits."""
         return self.out(x)
 
+    def init_gn_state(self, batch: int, device) -> tuple:
+        """Zero (count, sum, sum of squares) per (batch, group) for the
+        causal GroupNorm statistics of the continuous head, in f32."""
+        zeros = torch.zeros(batch, GN_GROUPS, dtype=torch.float32, device=device)
+        return 0, zeros, zeros.clone()
+
+    def head_causal(self, x: torch.Tensor, gn_state: tuple):
+        """Continuous head on one trunk slot (B, h, w, mc) with GroupNorm
+        statistics over every slot generated so far, this one included ->
+        (latents (B, h, w, out), new state). The moments reduce in f32; the
+        normalisation runs in x's dtype."""
+        count, s, ss = gn_state
+        n, s1, ss1 = group_moments(x, GN_GROUPS)
+        count, s, ss = count + n, s + s1, ss + ss1
+        mean = s / count
+        var = torch.clamp(ss / count - mean * mean, min=0.0)
+        h = causalizable_group_norm(x, self.out[0], mean.to(x.dtype), var.to(x.dtype))
+        return self._out_conv(h), (count, s, ss)
+
 
 class MAGECore(nn.Module):
-    """The stage-2 model of discrete MAGE (``use_cids=True``), eval mode."""
+    """The stage-2 model, eval mode: discrete MAGE (``use_cids=True``, ids
+    embedded by ``visual_token_embedding``) or MAGE+ (continuous latents of
+    ``embed_dim`` channels projected by it, with ``pre_ln`` cross-attention)."""
 
     def __init__(self, codebook_size: int, frames_length: int, image_resolution: int,
-                 vision_width: int, randomness: bool = False,
+                 vision_width: int, randomness: bool = False, use_cids: bool = True,
+                 pre_ln: bool = False, embed_dim: int = 4,
                  text_vocab_size: int = 30, text_context_length: int = 32,
                  text_width: int = 512, text_layers: int = 2, text_output_dim: int = 512,
                  text_padding_idx: int = 0, ma_layers: int = 1, ma_d_model: int = 512,
@@ -106,7 +178,12 @@ class MAGECore(nn.Module):
         self.frames_length = frames_length
         self.image_resolution = r
         self.randomness = randomness
-        self.visual_token_embedding = nn.Embedding(codebook_size, w)
+        self.use_cids = use_cids
+        self.pre_ln = pre_ln
+        if use_cids:
+            self.visual_token_embedding = nn.Embedding(codebook_size, w)
+        else:
+            self.visual_token_embedding = nn.Linear(embed_dim, w)
         # a Sequential so the stem conv is keyed ``conv.0`` as in the reference
         self.conv = nn.Sequential(nn.Conv2d(w, w, 3, padding=1, bias=False))
         self.speed_embedding = nn.Parameter(torch.empty(1, w))
@@ -116,10 +193,11 @@ class MAGECore(nn.Module):
             vocab_size=text_vocab_size, transformer_width=text_width,
             transformer_layers=text_layers, output_dim=text_output_dim,
             context_length=text_context_length, padding_idx=text_padding_idx)
-        self.ma_encoder = MAEncoder(layers=ma_layers, d_model=ma_d_model)
+        self.ma_encoder = MAEncoder(layers=ma_layers, d_model=ma_d_model, pre_ln=pre_ln)
         self.generate_model = FlatAxialDecoder(
             in_channels=w, model_channels=ma_d_model, out_channels=dec_out_channels,
-            frames_length=frames_length, layers=dec_layers, context_channels=ma_d_model)
+            frames_length=frames_length, layers=dec_layers, context_channels=ma_d_model,
+            use_cids=use_cids)
         if randomness:
             self.conv3d = nn.ModuleList([
                 BasicBlock3D(w, w), BasicBlock3D(w, w), BasicBlock3D(w, w),
@@ -131,9 +209,11 @@ class MAGECore(nn.Module):
 
     # ---- pieces -----------------------------------------------------------
 
-    def embed_latents(self, ids: torch.Tensor) -> torch.Tensor:
-        """ids (B, L, h, w) -> (B, L, h, w, width)."""
-        return self.visual_token_embedding(ids.long())
+    def embed_latents(self, x: torch.Tensor) -> torch.Tensor:
+        """ids (B, L, h, w) or continuous (B, L, h, w, c) -> (B, L, h, w, width)."""
+        if self.use_cids:
+            return self.visual_token_embedding(x.long())
+        return self.visual_token_embedding(x)
 
     def stem(self, x_emb: torch.Tensor) -> torch.Tensor:
         """Per-frame 3x3 conv + separable H/W positional embeddings,
@@ -181,7 +261,8 @@ class MAGECore(nn.Module):
                  generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Greedy frame-by-frame generation that re-runs the full decoder per
         frame over a buffer pre-filled with the first frame's embedding (the
-        reference loop). ``latents0`` (B, 1, h, w) -> ids (B, L-1, h, w)."""
+        reference loop). ``latents0`` (B, 1, h, w[, c]) -> ids (B, L-1, h, w)
+        or continuous latents (B, L-1, h, w, c)."""
         x_emb0, anchor = self._prepare_generation(latents0, text, speed, video_noise,
                                                   generator)
         b, _, h, w, c = x_emb0.shape
@@ -191,8 +272,12 @@ class MAGECore(nn.Module):
         for i in range(l1):
             prediction = self.generate_model(anchor, self.stem(buf))
             if i + 1 < l1:
-                ids = torch.argmax(prediction[:, i], dim=-1)
-                buf[:, i + 1] = self.embed_latents(ids)
+                frame = prediction[:, i]
+                if self.use_cids:
+                    frame = torch.argmax(frame, dim=-1)
+                buf[:, i + 1] = self.embed_latents(frame)
+        if not self.use_cids:
+            return prediction
         return torch.argmax(prediction, dim=-1).to(torch.int32)
 
     @torch.no_grad()
@@ -205,7 +290,10 @@ class MAGECore(nn.Module):
         ``temperature`` > 0 samples ids from softmax(logits / temperature),
         restricted to the ``top_k`` largest logits when 0 < top_k < K, with
         ``generator``; 0 is the exact greedy argmax. ``latents0``
-        (B, 1, h, w) -> ids (B, L-1, h, w)."""
+        (B, 1, h, w[, c]) -> ids (B, L-1, h, w) or continuous latents
+        (B, L-1, h, w, c), whose head normalises with causal statistics."""
+        if temperature > 0 and not self.use_cids:
+            raise ValueError("temperature sampling only applies to the discrete head")
         x_emb0, anchor = self._prepare_generation(latents0, text, speed, video_noise,
                                                   generator)
         b, _, h, w, c = x_emb0.shape
@@ -213,13 +301,16 @@ class MAGECore(nn.Module):
         cache = decoder.init_cache(b, h, w, x_emb0.dtype, x_emb0.device)
         decoder.decode_slot(anchor, 0, cache, is_anchor=True)
         slot = self.stem(x_emb0)[:, 0]  # frame 0 goes in at slot 1
+        gn_state = None if self.use_cids else decoder.init_gn_state(b, x_emb0.device)
         frames = []
         for pos in range(1, self.frames_length):
-            logits = decoder.head_slot(decoder.decode_slot(slot, pos, cache))
-            if temperature > 0:
-                frame = self._sample(logits, temperature, top_k, generator)
+            trunk = decoder.decode_slot(slot, pos, cache)
+            if not self.use_cids:
+                frame, gn_state = decoder.head_causal(trunk, gn_state)
+            elif temperature > 0:
+                frame = self._sample(decoder.head_slot(trunk), temperature, top_k, generator)
             else:
-                frame = torch.argmax(logits, dim=-1).to(torch.int32)  # (B, h, w)
+                frame = torch.argmax(decoder.head_slot(trunk), dim=-1).to(torch.int32)
             frames.append(frame)
             if pos + 1 < self.frames_length:
                 slot = self.stem(self.embed_latents(frame)[:, None])[:, 0]

@@ -1,9 +1,11 @@
-"""Two-stage TI2V pipeline for generation: frozen VQ-VAE + ``MAGECore``.
+"""Two-stage TI2V pipeline for generation: frozen first stage + ``MAGECore``.
 
-Port of ``mage_tpu/models/pipeline.py`` (discrete MAGE). ``MagePipeline``
-is built from the same YAML ``model.params`` as the JAX class and owns both
-stages as ``nn.Module``s; ``generate`` encodes the first frame, samples the
-ids of the remaining frames, decodes them and prepends the first frame.
+Port of ``mage_tpu/models/pipeline.py``. ``MagePipeline`` is built from the
+same YAML ``model.params`` as the JAX class and owns both stages as
+``nn.Module``s: the VQ-VAE with discrete MAGE (``use_cids: true``) or the
+KL autoencoder with MAGE+. ``generate`` encodes the first frame (a posterior
+sample for the KL-AE), generates the latents of the remaining frames,
+decodes them and prepends the first frame.
 
 The entry points run on the card: ``device`` defaults to ``"cuda"`` and a
 missing GPU raises unless the caller passes ``device="cpu"``. Weights are
@@ -21,6 +23,7 @@ import torch
 from torch import nn
 
 from mage_tpu_torch.config import instantiate_from_config, load_config, target_path
+from mage_tpu_torch.models.autoencoder_kl import AutoencoderKL, DiagonalGaussian
 from mage_tpu_torch.models.layers import MAEncoder, TransformerTextEncoder
 from mage_tpu_torch.models.mage import FlatAxialDecoder, MAGECore
 from mage_tpu_torch.models.vqvae import VectorQuantizedVAE
@@ -53,8 +56,15 @@ def _chunked_frames(fn, flat: torch.Tensor, max_chunk: int = 512) -> torch.Tenso
     return torch.cat([fn(c) for c in flat.split(chunk)], dim=0)
 
 
+# frames per KL encode or decode call: the JAX package's MAGE_KL_FRAME_CHUNK
+# default, which bounds the decoder's activation memory
+KL_FRAME_CHUNK = 96
+
+
 class FirstStageVQVAE:
     """Frozen VQ-VAE wrapper: video-batched encode/decode."""
+
+    is_discrete = True
 
     def __init__(self, model: VectorQuantizedVAE):
         self.model = model
@@ -91,6 +101,81 @@ class FirstStageVQVAE:
         return frames.reshape(b, t, *frames.shape[1:])
 
 
+class FirstStageKL:
+    """Frozen KL-autoencoder wrapper: video-batched encode (a posterior
+    sample) and decode, in frame chunks of at most ``KL_FRAME_CHUNK``
+    frames."""
+
+    is_discrete = False
+
+    def __init__(self, model: AutoencoderKL):
+        self.model = model
+
+    @classmethod
+    def from_config(cls, params: Mapping[str, Any]) -> "FirstStageKL":
+        """From the ldm-style params of ``config/mage+_*.yaml``
+        (``embed_dim`` and ``ddconfig``; ``monitor`` and ``lossconfig`` are
+        dropped). ``ckpt_path`` names an ldm checkpoint: the state dict under
+        ``state_dict``, whose ``loss.*`` training weights are dropped."""
+        p = dict(params)
+        p.pop("monitor", None)
+        p.pop("lossconfig", None)
+        ckpt_path = p.pop("ckpt_path", None)
+        dd = dict(p.pop("ddconfig", {}))
+        model = AutoencoderKL(
+            embed_dim=p.pop("embed_dim", dd.get("z_channels", 4)),
+            ch=dd.get("ch", 128),
+            ch_mult=tuple(dd.get("ch_mult", (1, 2, 4, 4))),
+            num_res_blocks=dd.get("num_res_blocks", 2),
+            in_channels=dd.get("in_channels", 3),
+            out_ch=dd.get("out_ch", 3),
+            z_channels=dd.get("z_channels", 4),
+            double_z=dd.get("double_z", True),
+            attn_resolutions=tuple(dd.get("attn_resolutions", ())),
+            resolution=dd.get("resolution", 128),
+            dropout=dd.get("dropout", 0.0),
+            logvar_bias=dd.get("logvar_bias", 0.0),
+        )
+        if ckpt_path:
+            sd = torch.load(ckpt_path, map_location="cpu", weights_only=True)
+            sd = sd.get("state_dict", sd)
+            model.load_state_dict({k: v for k, v in sd.items() if not k.startswith("loss.")},
+                                  strict=True)
+        return cls(model)
+
+    @property
+    def embed_dim(self) -> int:
+        return self.model.embed_dim
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.model.post_quant_conv.weight.dtype
+
+    @torch.no_grad()
+    def encode_moments(self, videos: torch.Tensor) -> torch.Tensor:
+        """(B, T, H, W, C) frames -> (B, T, h, w, 2 * z) posterior moments."""
+        b, t = videos.shape[:2]
+        flat = videos.reshape(b * t, *videos.shape[2:]).to(self.dtype)
+        moments = _chunked_frames(self.model.encode_moments, flat, KL_FRAME_CHUNK)
+        return moments.reshape(b, t, *moments.shape[1:])
+
+    @torch.no_grad()
+    def encode(self, videos: torch.Tensor, noise: Optional[torch.Tensor] = None,
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """(B, T, H, W, C) frames -> sampled latents (B, T, h, w, z); the
+        standard-normal ``noise`` (B, T, h, w, z) is drawn from ``generator``
+        when not given."""
+        return DiagonalGaussian(self.encode_moments(videos)).sample(noise, generator)
+
+    @torch.no_grad()
+    def decode(self, latents: torch.Tensor) -> torch.Tensor:
+        """(B, T, h, w, z) latents -> (B, T, H, W, C) frames."""
+        b, t = latents.shape[:2]
+        flat = latents.reshape(b * t, *latents.shape[2:]).to(self.dtype)
+        frames = _chunked_frames(self.model.decode, flat, KL_FRAME_CHUNK)
+        return frames.reshape(b, t, *frames.shape[1:])
+
+
 def _check_target(config: Mapping, default: type, what: str) -> None:
     target = config.get("target") if isinstance(config, Mapping) else None
     if target and target_path(str(target)) != f"{default.__module__}.{default.__name__}":
@@ -100,7 +185,7 @@ def _check_target(config: Mapping, default: type, what: str) -> None:
 
 class MagePipeline:
     """First stage + ``MAGECore`` + generation glue, from the YAML schema of
-    ``config/mage_*.yaml`` (``model.params``). Discrete MAGE only."""
+    ``config/mage_*.yaml`` and ``config/mage+_*.yaml`` (``model.params``)."""
 
     def __init__(
         self,
@@ -123,17 +208,17 @@ class MagePipeline:
         del training_params
         self.device = resolve_device(device)
         fs_target = target_path(str(first_stage_config.get("target", "")))
-        if fs_target.endswith("autoencoder_kl.AutoencoderKL") or not use_cids:
-            raise NotImplementedError(
-                "the continuous (MAGE+) pipeline with the KL-AE first stage is "
-                "ROADMAP item A7; the port runs discrete MAGE (use_cids: true)")
-        _check_target(first_stage_config, VectorQuantizedVAE, "first stage")
+        fs_params = first_stage_config.get("params", {})
+        if fs_target == f"{AutoencoderKL.__module__}.{AutoencoderKL.__name__}":
+            self.first_stage = FirstStageKL.from_config(fs_params)
+        else:
+            _check_target(first_stage_config, VectorQuantizedVAE, "first stage")
+            self.first_stage = FirstStageVQVAE.from_config(fs_params)
         _check_target(text_encoder_config, TransformerTextEncoder, "text encoder")
         _check_target(ma_config, MAEncoder, "motion-anchor encoder")
         _check_target(generate_decoder_config, FlatAxialDecoder, "decoder")
         self.use_cids = use_cids
         self.frames_length = frames_length
-        self.first_stage = FirstStageVQVAE.from_config(first_stage_config.get("params", {}))
         te = dict(text_encoder_config.get("params", {}))
         ma = dict(ma_config.get("params", {}))
         dec = dict(generate_decoder_config.get("params", {}))
@@ -143,6 +228,9 @@ class MagePipeline:
             image_resolution=image_resolution,
             vision_width=vision_width,
             randomness=randomness,
+            use_cids=use_cids,
+            pre_ln=not use_cids,  # MAGE+ uses the pre-LN cross-attention
+            embed_dim=getattr(self.first_stage, "embed_dim", 4),
             text_vocab_size=te.get("vocab_size", 30),
             text_context_length=te.get("context_length", 32),
             text_width=te.get("transformer_width", 512),
@@ -152,7 +240,7 @@ class MagePipeline:
             ma_layers=ma.get("layers", 1),
             ma_d_model=ma.get("d_model", 512),
             dec_layers=dec.get("layers", 6),
-            dec_out_channels=dec.get("out_channels", codebook_size),
+            dec_out_channels=dec.get("out_channels", codebook_size if use_cids else 4),
         )
         init_weights(self.core, torch.Generator().manual_seed(seed))
         init_weights(self.first_stage.model, torch.Generator().manual_seed(seed + 1))
@@ -195,21 +283,31 @@ class MagePipeline:
 
     @torch.no_grad()
     def generate(self, batch: Mapping[str, Any], *, video_noise=None,
-                 generator: Optional[torch.Generator] = None,
-                 cached: bool = True, temperature: float = 0.0,
+                 posterior_noise=None, generator: Optional[torch.Generator] = None,
+                 cached: Optional[bool] = None, temperature: float = 0.0,
                  top_k: int = 0) -> torch.Tensor:
         """batch (``images`` (B, L, H, W, C) of which frame 0 is used,
         ``text`` (B, ctx) ids, optional ``speed`` (B,)) -> video
         (B, L, H, W, C) with the given first frame prepended.
 
         ``video_noise`` (B, h, w, 64) is the prior sample of the stochastic
-        branch; without it one is drawn from ``generator``. ``cached``
-        selects the KV-cached sampler; ``temperature`` and
-        ``top_k`` sample ids with it instead of the greedy argmax."""
+        branch and ``posterior_noise`` (B, 1, h, w, z) the standard-normal
+        draw of the KL-AE's first-frame sample; what is not given is drawn
+        from ``generator``. ``cached`` selects the KV-cached sampler and
+        defaults to ``use_cids``: exact for discrete ids, causal GroupNorm
+        statistics for MAGE+, whose default is the naive reference loop.
+        ``temperature`` and ``top_k`` sample ids with the cached sampler
+        instead of the greedy argmax."""
+        if cached is None:
+            cached = self.use_cids
         dev = self.device
         first = torch.as_tensor(batch["images"])[:, 0:1].to(device=dev,
                                                              dtype=self.first_stage.dtype)
-        latents0 = self.first_stage.encode(first)
+        if self.first_stage.is_discrete:
+            latents0 = self.first_stage.encode(first)
+        else:
+            latents0 = self.first_stage.encode(first, posterior_noise, generator)
+            latents0 = latents0.to(self.dtype)  # the core's dtype, as the JAX bench casts
         text = torch.as_tensor(batch["text"]).to(dev)
         speed = batch.get("speed")
         if speed is not None:
@@ -217,15 +315,15 @@ class MagePipeline:
         if video_noise is not None:
             video_noise = torch.as_tensor(video_noise)
         if cached:
-            ids = self.core.generate_cached(latents0, text, speed, video_noise=video_noise,
+            latents = self.core.generate_cached(latents0, text, speed, video_noise=video_noise,
                                             generator=generator, temperature=temperature,
                                             top_k=top_k)
         else:
             if temperature > 0:
                 raise ValueError("temperature sampling requires cached=True")
-            ids = self.core.generate(latents0, text, speed, video_noise=video_noise,
-                                     generator=generator)
-        video = self.first_stage.decode(ids)
+            latents = self.core.generate(latents0, text, speed, video_noise=video_noise,
+                                         generator=generator)
+        video = self.first_stage.decode(latents)
         return torch.cat([first, video], dim=1)
 
 
@@ -233,7 +331,9 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
     """Random weights at the JAX package's init scales, drawn from
     ``generator``: unit norms and zero biases, Xavier-uniform convs, the
     VQ codebook U(-1/K, 1/K), width^-0.5 positional and speed embeddings,
-    normal(0.02) for everything else."""
+    normal(0.02) for everything else. The continuous head's 1x1x1 conv
+    (``generate_model.out.2``) starts at zero, as in the JAX package (the
+    reference's ``zero_module``)."""
 
     def normal_(p, std):
         p.copy_(torch.randn(p.shape, generator=generator) * std)
@@ -246,7 +346,7 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
             for leaf, p in m.named_parameters(recurse=False):
                 if isinstance(m, (nn.LayerNorm, nn.GroupNorm)):
                     p.fill_(1.0 if leaf == "weight" else 0.0)
-                elif leaf.endswith("bias"):
+                elif leaf.endswith("bias") or mname.endswith("generate_model.out.2"):
                     p.zero_()
                 elif isinstance(m, (nn.Conv2d, nn.Conv3d)):
                     fans = (p.shape[0] + p.shape[1]) * math.prod(p.shape[2:])

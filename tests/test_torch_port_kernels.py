@@ -12,6 +12,7 @@ import torch
 
 from mage_tpu_torch.ops import axial_attention as ax
 from mage_tpu_torch.ops import cached_attention as ca
+from mage_tpu_torch.ops import gn_conv as gc
 from mage_tpu_torch.ops import vq
 
 DTYPES = [torch.float32, torch.bfloat16]
@@ -78,3 +79,39 @@ def test_kernels_reject_what_they_do_not_take(gen):
         ca.cached_slot_attention(q[0], q, q, 8, 2)  # pos past the cache
     with pytest.raises(TypeError):
         vq.nearest_codebook_indices(q[0], q[0].to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,h,w,c,cout", [(3, 1, 7, 16, 48), (1, 5, 130, 32, 16),
+                                          (2, 16, 16, 512, 512)])
+def test_gn_conv_kernel_matches_plain(gen, dtype, b, h, w, c, cout, monkeypatch):
+    """16 GroupNorm groups (C=16 has no 32). bf16: one rounding step of the
+    output, plus a 1e-3 floor for the rare activation that rounds to the
+    neighbouring bf16 value (the kernel and the plain version sum in other
+    orders)."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    x = (torch.randn(b, h, w, c, generator=gen, device="cuda") * 2 + 0.5).to(dtype)
+    gamma = torch.randn(c, generator=gen, device="cuda") * 0.5 + 1
+    beta = torch.randn(c, generator=gen, device="cuda") * 0.2
+    weight = torch.randn(cout, c, 3, 3, generator=gen, device="cuda") / (9 * c) ** 0.5
+    bias = torch.randn(cout, generator=gen, device="cuda") * 0.1
+    before = gc.KERNEL.launches
+    got = gc.gn_silu_conv3x3(x, gamma, beta, weight, bias, groups=16)
+    assert gc.KERNEL.launches == before + 1
+    want = gc.gn_silu_conv3x3(x, gamma, beta, weight, bias, groups=16, impl="torch")
+    assert got.shape == (b, h, w, cout) and got.dtype == dtype
+    tol = TOL[dtype] if dtype == torch.float32 else dict(rtol=2**-7, atol=1e-3)
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+def test_gn_conv_rejects_what_it_does_not_take(gen):
+    x = torch.randn(2, 4, 4, 32, generator=gen, device="cuda")
+    ones, zeros = torch.ones(32, device="cuda"), torch.zeros(32, device="cuda")
+    weight = torch.randn(32, 32, 3, 3, generator=gen, device="cuda")
+    with pytest.raises(ValueError):  # C % 16 != 0
+        gc.gn_silu_conv3x3(x[..., :24].contiguous(), ones[:24], zeros[:24],
+                           weight[:, :24].contiguous(), zeros)
+    with pytest.raises(ValueError):  # not contiguous
+        gc.gn_silu_conv3x3(x.transpose(1, 2), ones, zeros, weight, zeros)
+    with pytest.raises(ValueError):  # a parameter on the CPU
+        gc.gn_silu_conv3x3(x, ones, zeros, weight.cpu(), zeros)

@@ -178,9 +178,15 @@ def test_config_targets_resolve_to_the_port():
     assert pipe.core.generate_model.frames_length == 4
     assert pipe.first_stage.model.codebook.embedding.weight.shape == (512, 1024)
     assert len(pipe.core.generate_model.blocks) == 6
-    with pytest.raises(NotImplementedError, match="A7"):
-        port_pipeline.build_pipeline(ROOT / "config" / "mage+_caterv1.yaml", 4,
-                                     device="cpu")
+    # MAGE+: the KL-AE first stage (ldm keys) and the continuous, pre-LN core
+    plus = port_pipeline.build_pipeline(ROOT / "config" / "mage+_caterv1.yaml", 4,
+                                        device="cpu")
+    assert isinstance(plus.first_stage, port_pipeline.FirstStageKL)
+    assert plus.first_stage.model.decoder.up[3].upsample.conv.weight.shape == (512, 512, 3, 3)
+    assert not plus.core.use_cids and plus.core.pre_ln
+    assert plus.core.visual_token_embedding.weight.shape == (512, 4)
+    assert plus.core.generate_model.out[2].weight.shape == (4, 512, 1, 1, 1)
+    assert not plus.core.generate_model.out[2].weight.any()  # zero-init, as in JAX
 
 
 def test_package_imports_with_jax_and_mage_tpu_blocked():
