@@ -16,7 +16,11 @@ fatal on failure (exit code 1; 2 when there is no GPU or no package):
    (plain versions), which must agree;
 6. the MAGE+ path: the same for ``config/mage+_caterv2.yaml`` (KL-AE first
    stage, continuous latents, cached sampler), and its f32 GPU-vs-CPU check;
-7. one JSON line with every kernel's numbers, then the closing JSON line.
+7. the fused whole-block spatial route (``spatial_attn="fusedblock"``): the
+   MAGE path again with its launch counts, frames/s and stage split beside
+   the flat route's, then f32 GPU-vs-CPU checks of MAGE (cached sampler) and
+   MAGE+ (both samplers);
+8. one JSON line with every kernel's numbers, then the closing JSON line.
 """
 
 from __future__ import annotations
@@ -47,6 +51,13 @@ KL_CHUNK = 96
 GN_CONV_SITES = {(16, 512, 512): 10, (32, 512, 512): 6, (64, 512, 256): 1,
                  (64, 256, 256): 5, (128, 256, 128): 1, (128, 128, 128): 5}
 GN_BF16_ATOL = 1e-3  # an activation that rounds to the neighbouring bf16 value
+# the fused block: an intermediate (seq above all, whose residual goes
+# straight to the output) that rounds to its neighbouring bf16 value moves
+# the output by one bf16 step at that intermediate's magnitude, so bf16 is
+# held to one step of each value plus this fraction of the largest |output|
+BLOCK_BF16_ATOL_REL = 2.0 ** -7
+BLOCK_BF16_VS_F32 = 1.1  # the kernel's mean bf16 error over the plain version's
+NAIVE_G = BATCH * FRAMES * 16  # the naive sampler's groups per spatial block launch
 
 
 def log(msg: str) -> None:
@@ -263,6 +274,88 @@ def check_gn_conv(torch, F, gc, gen) -> dict:
     }
 
 
+def block_weights(torch, tl, gen, dtype):
+    """An H/W-axis block at full width on the card (axial_dim 3, so a
+    (1, 1, G, S, D) view is the flat (G, S, D) layout), with normal(0.02)
+    weights and biases from ``gen`` and unit LayerNorms."""
+    block = tl.AxialAttentionBlock(AX_D, HEADS, axial_dim=3)
+    with torch.no_grad():
+        for name, p in block.named_parameters():
+            if name.startswith(("ln_1", "ln_2")):
+                p.fill_(1.0 if name.endswith("weight") else 0.0)
+            else:
+                p.copy_(torch.randn(p.shape, generator=gen, device="cuda") * 0.02)
+    return block.to(device="cuda", dtype=dtype).eval()
+
+
+def check_axial_block(torch, ax, tl, gen) -> dict:
+    """The fused block at the cached sampler's shape (G=512, S=16, D=512, 16
+    heads) against its plain version on the same inputs and weights: f32
+    within 1e-5, bf16 within one rounding step plus ``BLOCK_BF16_ATOL_REL``
+    of the largest |output| (the share of values past one step is printed).
+    Timed in bf16 beside the plain version and the flat route it replaces
+    (the port's ``AxialAttentionBlock``: LayerNorms, cuBLAS projections and
+    MLP, the axial attention kernel, residual adds); the kernel alone is also
+    timed at the naive sampler's shape."""
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        block = block_weights(torch, tl, gen, dtype)
+        params = block.fused_block_params()
+        x = torch.randn(AX_G, AX_S, AX_D, generator=gen, device="cuda").to(dtype)
+        with torch.no_grad():
+            got = ax.axial_block_fused(x, params, HEADS).float()
+            want = ax.axial_block_fused(x, params, HEADS, impl="torch").float()
+        err = float((got - want).abs().max())
+        if dtype == torch.float32:
+            ok = torch.allclose(got, want, rtol=F32_TOL, atol=F32_TOL)
+        else:
+            atol = BLOCK_BF16_ATOL_REL * float(want.abs().max())
+            ok = torch.allclose(got, want, rtol=BF16_RTOL, atol=atol)
+        if not ok:
+            raise AssertionError(f"axial block {dtype}: max abs err {err}")
+        log(f"axial block {str(dtype)[6:]}: max |kernel - plain| {err}, max |plain| "
+            f"{float(want.abs().max())}")
+        if dtype == torch.bfloat16:
+            past_step = float(((got - want).abs() > BF16_RTOL * want.abs()).float().mean())
+            # both round at the same points, so both are as far from the f32 math
+            with torch.no_grad():
+                exact = ax.axial_block_fused(x.float(), tuple(p.float() for p in params),
+                                             HEADS, impl="torch")
+            k_err = float((got - exact).abs().mean())
+            p_err = float((want - exact).abs().mean())
+            log(f"axial block bf16: share past one step of its value {past_step}; against "
+                f"the f32 plain version: mean |kernel - f32| {k_err}, mean |plain - f32| "
+                f"{p_err}")
+            if not k_err <= BLOCK_BF16_VS_F32 * p_err:
+                raise AssertionError("the bf16 kernel is further from the f32 math than "
+                                     "the bf16 plain version")
+        out[dtype] = (block, params, x, err)
+    block, params, x, err = out[torch.bfloat16]
+    d = AX_D
+    n_weights = 12 * d * d + 13 * d  # matrices, biases and LayerNorm affines
+    flops = 2.0 * AX_G * AX_S * 12 * d * d + 4.0 * AX_G * AX_S * AX_S * d
+    b, by = bound_ms((2 * x.numel() + n_weights) * x.element_size(), flops,
+                     BF16_TC_FLOP_PER_S)
+    x5 = x.view(1, 1, AX_G, AX_S, AX_D)
+    with torch.no_grad():
+        row = {
+            "name": "axial_block_fused", "route": "cuda",
+            "source": "mage_tpu_torch/csrc/axial_block.cu",
+            "replaces": "mage_tpu/ops/axial_attention.py:137", "max_abs_err": err,
+            "ms": time_ms(lambda: ax.axial_block_fused(x, params, HEADS)),
+            "plain_ms": time_ms(lambda: ax.axial_block_fused(x, params, HEADS, impl="torch")),
+            "bound_ms": b, "bound_by": by, "library_ms": None,
+            "unfused_ms": time_ms(lambda: block(x5)),
+        }
+        xn = torch.randn(NAIVE_G, AX_S, AX_D, generator=gen, device="cuda").to(x.dtype)
+        naive_ms = time_ms(lambda: ax.axial_block_fused(xn, params, HEADS), iters=5)
+        naive_bound, _ = bound_ms((2 * xn.numel() + n_weights) * 2, flops * NAIVE_G / AX_G,
+                                  BF16_TC_FLOP_PER_S)
+    log(f"axial block at the naive sampler's shape {tuple(xn.shape)} per launch (bf16): "
+        f"kernel {naive_ms} ms, bound {naive_bound} ms")
+    return row
+
+
 def make_batch(np, batch: int, context: int, seed: int = 0) -> dict:
     """The JAX bench's inputs: random frames, a 4-word caption, a speed."""
     rng = np.random.RandomState(seed)
@@ -284,10 +377,12 @@ def live_head(torch, pipe, seed: int = 5) -> None:
 
 
 def run_main_path(torch, np, build_pipeline, kernels, card: str,
-                  config: str = "config/mage_caterv1.yaml", want=None) -> dict:
+                  config: str = "config/mage_caterv1.yaml", want=None,
+                  spatial_attn: str = "flat") -> tuple:
     """One path at full width: launch counts around one ``generate``, output
-    checks, frames/s (median of 3), peak memory and the stage split."""
-    pipe = build_pipeline(config, FRAMES, device="cuda", seed=0)
+    checks, frames/s (median of 3), peak memory and the stage split.
+    Returns (launch counts, the path's numbers)."""
+    pipe = build_pipeline(config, FRAMES, device="cuda", seed=0, spatial_attn=spatial_attn)
     if not pipe.use_cids:
         live_head(torch, pipe)
     pipe.to(dtype=torch.bfloat16)  # both stages, as the JAX bench casts them
@@ -301,7 +396,7 @@ def run_main_path(torch, np, build_pipeline, kernels, card: str,
     video = pipe.generate(batch, generator=gen.manual_seed(1), cached=True)
     torch.cuda.synchronize()
     launches = {name: kern.launches for name, kern in kernels.items()}
-    log(f"{config} launches per generate: {launches}")
+    log(f"{config} ({spatial_attn}) launches per generate: {launches}")
     if launches != want:
         raise AssertionError(f"launch counts {launches}, expected {want}")
     if tuple(video.shape) != (BATCH, FRAMES, RES, RES, 3):
@@ -322,10 +417,11 @@ def run_main_path(torch, np, build_pipeline, kernels, card: str,
         "config": config, "generated_frames_per_s": gen_frames / statistics.median(times),
         "generate_s": times, "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
         "card": card, "batch": BATCH, "frames_length": FRAMES, "dtype": "bfloat16",
-        "sampler": "cached", "stage_ms": stage_breakdown(torch, pipe, batch, gen),
+        "sampler": "cached", "spatial_attn": spatial_attn,
+        "stage_ms": stage_breakdown(torch, pipe, batch, gen),
     }
     log("path: " + json.dumps(result))
-    return launches
+    return launches, result
 
 
 def stage_breakdown(torch, pipe, batch, gen) -> dict:
@@ -369,13 +465,14 @@ def stage_breakdown(torch, pipe, batch, gen) -> dict:
     return out
 
 
-def run_reference_check(torch, np, build_pipeline) -> None:
+def run_reference_check(torch, np, build_pipeline, spatial_attn: str = "flat") -> None:
     """Batch 2, f32: the GPU (kernels) against the CPU (plain versions)."""
     batch = make_batch(np, 2, 32, seed=3)
     noise = torch.randn(2, 16, 16, 64, generator=torch.Generator().manual_seed(4))
     outs = {}
     for device in ("cuda", "cpu"):
-        pipe = build_pipeline("config/mage_caterv1.yaml", FRAMES, device=device, seed=0)
+        pipe = build_pipeline("config/mage_caterv1.yaml", FRAMES, device=device, seed=0,
+                              spatial_attn=spatial_attn)
         first = torch.from_numpy(batch["images"][:, :1]).to(device)
         lat0 = pipe.first_stage.encode(first)
         ids = pipe.core.generate_cached(
@@ -390,34 +487,39 @@ def run_reference_check(torch, np, build_pipeline) -> None:
     frames_g = gpu_pipe.first_stage.decode(few.cuda()).cpu()
     frames_c = outs["cpu"][0].first_stage.decode(few)
     frame_err = float((frames_g - frames_c).abs().max())
-    log(f"f32 GPU vs CPU: first-frame ids equal {same_lat:.4f}, generated ids equal "
+    log(f"f32 GPU vs CPU ({spatial_attn}): first-frame ids equal {same_lat:.4f}, generated ids equal "
         f"{same_ids:.4f}, max |frames| diff {frame_err:.3g}")
     if same_lat < 0.999 or same_ids < 0.99 or not frame_err < 1e-3:
         raise AssertionError("the GPU pipeline disagrees with the CPU reference")
 
 
-def run_magep_reference_check(torch, np, build_pipeline) -> None:
+def run_magep_reference_check(torch, np, build_pipeline, spatial_attn: str = "flat",
+                              cached: bool = True, length: int = FRAMES) -> None:
     """Batch 1, f32: the MAGE+ path on the GPU (kernels) against the CPU
-    (plain versions) with the same posterior and prior noise; two generated
-    frames are decoded, which keeps the CPU decode short."""
+    (plain versions) with the same posterior and prior noise, on the cached
+    sampler or the naive one; two generated frames are decoded, which keeps
+    the CPU decode short."""
     batch = make_batch(np, 1, 38, seed=6)
     cpu_gen = torch.Generator().manual_seed(7)
     post_noise = torch.randn(1, 1, 16, 16, 4, generator=cpu_gen)
     video_noise = torch.randn(1, 16, 16, 64, generator=cpu_gen)
     outs = {}
     for device in ("cuda", "cpu"):
-        pipe = build_pipeline("config/mage+_caterv2.yaml", FRAMES, device=device, seed=0)
+        pipe = build_pipeline("config/mage+_caterv2.yaml", length, device=device, seed=0,
+                              spatial_attn=spatial_attn)
         live_head(torch, pipe)
         first = torch.from_numpy(batch["images"][:, :1]).to(device)
         lat0 = pipe.first_stage.encode(first, post_noise.to(device))
-        latents = pipe.core.generate_cached(
+        sample = pipe.core.generate_cached if cached else pipe.core.generate
+        latents = sample(
             lat0, torch.from_numpy(batch["text"]).to(device),
             torch.from_numpy(batch["speed"]).to(device), video_noise=video_noise.to(device))
         frames = pipe.first_stage.decode(latents[:, :2])
         outs[device] = (latents.cpu(), frames.cpu())
     lat_err = float((outs["cuda"][0] - outs["cpu"][0]).abs().max())
     frame_err = float((outs["cuda"][1] - outs["cpu"][1]).abs().max())
-    log(f"MAGE+ f32 GPU vs CPU: max |latents| diff {lat_err:.3g} (latent std "
+    log(f"MAGE+ f32 GPU vs CPU ({spatial_attn}, {'cached' if cached else 'naive'} sampler, "
+        f"L={length}): max |latents| diff {lat_err:.3g} (latent std "
         f"{float(outs['cpu'][0].std()):.3g}), max |frames| diff {frame_err:.3g}")
     if not (lat_err < 1e-4 and frame_err < 1e-3):
         raise AssertionError("the GPU MAGE+ pipeline disagrees with the CPU reference")
@@ -437,6 +539,7 @@ def main() -> int:
         import torch.nn.functional as F
 
         from mage_tpu_torch import _build
+        from mage_tpu_torch.models import layers as tl
         from mage_tpu_torch.models.pipeline import build_pipeline
         from mage_tpu_torch.ops import axial_attention as ax
         from mage_tpu_torch.ops import cached_attention as ca
@@ -463,24 +566,39 @@ def main() -> int:
 
         gen = torch.Generator(device="cuda").manual_seed(0)
         rows = [check_vq(torch, vq, gen), check_axial(torch, F, ax, gen),
-                check_cached(torch, F, ca, gen), check_gn_conv(torch, F, gc, gen)]
+                check_cached(torch, F, ca, gen), check_gn_conv(torch, F, gc, gen),
+                check_axial_block(torch, ax, tl, gen)]
         kernels = {"vq_nearest": vq.KERNEL, "axial_slot_attention": ax.KERNEL,
-                   "cached_slot_attention": ca.KERNEL, "gn_silu_conv3x3": gc.KERNEL}
-        mage = run_main_path(torch, np, build_pipeline, kernels, smi, want={
+                   "cached_slot_attention": ca.KERNEL, "gn_silu_conv3x3": gc.KERNEL,
+                   "axial_block_fused": ax.KERNEL_BLOCK}
+        mage, mage_path = run_main_path(torch, np, build_pipeline, kernels, smi, want={
             "vq_nearest": 1, "axial_slot_attention": 4 * FRAMES,
-            "cached_slot_attention": 2 * FRAMES, "gn_silu_conv3x3": 0})
+            "cached_slot_attention": 2 * FRAMES, "gn_silu_conv3x3": 0,
+            "axial_block_fused": 0})
         run_reference_check(torch, np, build_pipeline)
         n_gn = sum(GN_CONV_SITES.values()) * (BATCH * (FRAMES - 1) // KL_CHUNK)
-        magep = run_main_path(torch, np, build_pipeline, kernels, smi,
-                              "config/mage+_caterv2.yaml", want={
-                                  "vq_nearest": 0, "axial_slot_attention": 4 * FRAMES,
-                                  "cached_slot_attention": 2 * FRAMES,
-                                  "gn_silu_conv3x3": n_gn})
+        magep, _ = run_main_path(torch, np, build_pipeline, kernels, smi,
+                                 "config/mage+_caterv2.yaml", want={
+                                     "vq_nearest": 0, "axial_slot_attention": 4 * FRAMES,
+                                     "cached_slot_attention": 2 * FRAMES,
+                                     "gn_silu_conv3x3": n_gn, "axial_block_fused": 0})
+        run_magep_reference_check(torch, np, build_pipeline)
+        fused, fused_path = run_main_path(torch, np, build_pipeline, kernels, smi, want={
+            "vq_nearest": 1, "axial_slot_attention": 0,
+            "cached_slot_attention": 2 * FRAMES, "gn_silu_conv3x3": 0,
+            "axial_block_fused": 4 * FRAMES}, spatial_attn="fusedblock")
+        log("MAGE fusedblock beside flat: " + json.dumps({
+            key: {"flat": mage_path[key], "fusedblock": fused_path[key]}
+            for key in ("generated_frames_per_s", "generate_s", "peak_mem_gib", "stage_ms")}))
+        run_reference_check(torch, np, build_pipeline, spatial_attn="fusedblock")
+        run_magep_reference_check(torch, np, build_pipeline, spatial_attn="fusedblock")
+        run_magep_reference_check(torch, np, build_pipeline, spatial_attn="fusedblock",
+                                  cached=False, length=4)
+        paths = {"gn_silu_conv3x3": magep, "axial_block_fused": fused}
         for row in rows:  # each kernel's launches on the path that runs it
-            row["launches"] = (magep if row["name"] == "gn_silu_conv3x3" else mage)[row["name"]]
+            row["launches"] = paths.get(row["name"], mage)[row["name"]]
             row.setdefault("conv_only_ms", None)
             row.setdefault("unfused_ms", None)
-        run_magep_reference_check(torch, np, build_pipeline)
     except Exception:
         traceback.print_exc()
         return 1

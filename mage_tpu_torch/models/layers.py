@@ -7,9 +7,11 @@ text encoder its ``transformer.layers.{i}`` stack, the cross-attention
 block its ``ln_q``/``ln_kv`` (applied in MAGE+ only).
 
 Eval-mode blocks that attend along H or W go through
-``ops.axial_slot_attention``; the temporal blocks of the cached sampler go
-through ``ops.cached_slot_attention`` and write the new slot's K/V into the
-cache in place.
+``ops.axial_slot_attention`` between plain projections (``spatial_attn=
+"flat"``, the default) or run whole through ``ops.axial_block_fused``
+(``"fusedblock"``, JAX's ``MAGE_SPATIAL_ATTN=fusedblock``); the temporal
+blocks of the cached sampler go through ``ops.cached_slot_attention`` and
+write the new slot's K/V into the cache in place.
 """
 
 from __future__ import annotations
@@ -21,10 +23,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from mage_tpu_torch.ops.axial_attention import axial_slot_attention
+from mage_tpu_torch.ops.axial_attention import axial_block_fused, axial_slot_attention
 from mage_tpu_torch.ops.cached_attention import cached_slot_attention
 
 NEG_INF = -1e9  # additive mask value, as in the JAX package
+SPATIAL_ATTN = ("flat", "fusedblock")  # routes of an unmasked (H or W) block
 
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
@@ -93,12 +96,19 @@ class MLP(nn.Module):
 
 class AxialAttentionBlock(nn.Module):
     """Pre-LN self-attention + MLP along one axis of (B, T, H, W, C)
-    (``axial_dim``: 1 = T, 2 = H, 3 = W), eval mode."""
+    (``axial_dim``: 1 = T, 2 = H, 3 = W), eval mode. ``spatial_attn`` picks
+    the route of a call without ``attn_bias``: ``"flat"`` runs the block's
+    layers with the flat attention op between them, ``"fusedblock"`` the
+    whole block as one op on the block's own parameters."""
 
-    def __init__(self, d_model: int, n_head: int, axial_dim: int = 1):
+    def __init__(self, d_model: int, n_head: int, axial_dim: int = 1,
+                 spatial_attn: str = "flat"):
         super().__init__()
+        if spatial_attn not in SPATIAL_ATTN:
+            raise ValueError(f"spatial_attn must be one of {SPATIAL_ATTN}, got {spatial_attn!r}")
         self.n_head = n_head
         self.axial_dim = axial_dim
+        self.spatial_attn = spatial_attn
         self.attn = MultiHeadAttention(d_model, n_head)
         self.ln_1 = nn.LayerNorm(d_model, eps=1e-5)
         self.ln_2 = nn.LayerNorm(d_model, eps=1e-5)
@@ -109,6 +119,10 @@ class AxialAttentionBlock(nn.Module):
         moved = torch.movedim(x, axis, -2)  # (..., S, C)
         shape = moved.shape
         seq = moved.reshape(-1, shape[-2], shape[-1])
+        if attn_bias is None and self.spatial_attn == "fusedblock":
+            out = axial_block_fused(seq, self.fused_block_params(), self.n_head,
+                                    eps=self.ln_1.eps)
+            return torch.movedim(out.reshape(shape), -2, axis)
         h = self.ln_1(seq)
         if attn_bias is None:
             # unmasked axis: the flat (G, S, D) attention op (kernel on CUDA)
@@ -122,6 +136,19 @@ class AxialAttentionBlock(nn.Module):
         seq = seq + attn_out
         seq = seq + self.mlp(self.ln_2(seq))
         return torch.movedim(seq.reshape(shape), -2, axis)
+
+    def fused_block_params(self) -> tuple:
+        """The parameters ``ops.axial_block_fused`` takes, as views of this
+        block's own: LN1, the q, k and v rows of the packed in-projection
+        with their biases, out-proj, LN2, c_fc and c_proj."""
+        d = self.attn.d_model
+        w, b = self.attn.in_proj_weight, self.attn.in_proj_bias
+        return (self.ln_1.weight, self.ln_1.bias,
+                w[:d], b[:d], w[d:2 * d], b[d:2 * d], w[2 * d:], b[2 * d:],
+                self.attn.out_proj.weight, self.attn.out_proj.bias,
+                self.ln_2.weight, self.ln_2.bias,
+                self.mlp.c_fc.weight, self.mlp.c_fc.bias,
+                self.mlp.c_proj.weight, self.mlp.c_proj.bias)
 
     def incremental_temporal(self, x_slot: torch.Tensor, cache_k: torch.Tensor,
                              cache_v: torch.Tensor, pos: int) -> torch.Tensor:

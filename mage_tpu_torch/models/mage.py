@@ -72,11 +72,13 @@ class FlatAxialDecoder(nn.Module):
     """``layers`` axial blocks cycling T, H, W (``i % 3``); T-blocks are
     causal. The motion anchor is pseudo-frame 0; outputs predict frames
     1..L-1: logits (``use_cids``) or continuous latents. The continuous head
-    is GroupNorm -> silu -> 1x1x1 conv, keyed ``out.0`` and ``out.2``."""
+    is GroupNorm -> silu -> 1x1x1 conv, keyed ``out.0`` and ``out.2``.
+    ``spatial_attn`` is every block's route for its unmasked (H and W) calls
+    (``AxialAttentionBlock``)."""
 
     def __init__(self, in_channels: int, model_channels: int, out_channels: int,
                  frames_length: int, layers: int, context_channels: Optional[int] = None,
-                 use_cids: bool = True):
+                 use_cids: bool = True, spatial_attn: str = "flat"):
         super().__init__()
         mc = model_channels
         self.frames_length = frames_length
@@ -86,7 +88,8 @@ class FlatAxialDecoder(nn.Module):
         self.context_linear = nn.Linear(context_channels or mc, mc)
         self.T_positional_embedding = nn.Parameter(torch.empty(frames_length, 1, 1, mc))
         self.blocks = nn.ModuleList(
-            AxialAttentionBlock(mc, mc // 32, axial_dim=i % 3 + 1) for i in range(layers))
+            AxialAttentionBlock(mc, mc // 32, axial_dim=i % 3 + 1, spatial_attn=spatial_attn)
+            for i in range(layers))
         if use_cids:
             self.out = nn.Linear(mc, out_channels)
         else:
@@ -163,7 +166,8 @@ class FlatAxialDecoder(nn.Module):
 class MAGECore(nn.Module):
     """The stage-2 model, eval mode: discrete MAGE (``use_cids=True``, ids
     embedded by ``visual_token_embedding``) or MAGE+ (continuous latents of
-    ``embed_dim`` channels projected by it, with ``pre_ln`` cross-attention)."""
+    ``embed_dim`` channels projected by it, with ``pre_ln`` cross-attention).
+    ``spatial_attn`` ("flat" or "fusedblock") goes to the decoder's blocks."""
 
     def __init__(self, codebook_size: int, frames_length: int, image_resolution: int,
                  vision_width: int, randomness: bool = False, use_cids: bool = True,
@@ -171,7 +175,8 @@ class MAGECore(nn.Module):
                  text_vocab_size: int = 30, text_context_length: int = 32,
                  text_width: int = 512, text_layers: int = 2, text_output_dim: int = 512,
                  text_padding_idx: int = 0, ma_layers: int = 1, ma_d_model: int = 512,
-                 dec_layers: int = 6, dec_out_channels: int = 512):
+                 dec_layers: int = 6, dec_out_channels: int = 512,
+                 spatial_attn: str = "flat"):
         super().__init__()
         w, r = vision_width, image_resolution
         self.codebook_size = codebook_size
@@ -197,7 +202,7 @@ class MAGECore(nn.Module):
         self.generate_model = FlatAxialDecoder(
             in_channels=w, model_channels=ma_d_model, out_channels=dec_out_channels,
             frames_length=frames_length, layers=dec_layers, context_channels=ma_d_model,
-            use_cids=use_cids)
+            use_cids=use_cids, spatial_attn=spatial_attn)
         if randomness:
             self.conv3d = nn.ModuleList([
                 BasicBlock3D(w, w), BasicBlock3D(w, w), BasicBlock3D(w, w),

@@ -185,7 +185,10 @@ def _check_target(config: Mapping, default: type, what: str) -> None:
 
 class MagePipeline:
     """First stage + ``MAGECore`` + generation glue, from the YAML schema of
-    ``config/mage_*.yaml`` and ``config/mage+_*.yaml`` (``model.params``)."""
+    ``config/mage_*.yaml`` and ``config/mage+_*.yaml`` (``model.params``).
+    ``spatial_attn="fusedblock"`` runs every spatial decoder block as one
+    fused op (the JAX package's ``MAGE_SPATIAL_ATTN=fusedblock``); the
+    default ``"flat"`` runs its layers around the flat attention op."""
 
     def __init__(
         self,
@@ -201,6 +204,7 @@ class MagePipeline:
         randomness: bool = False,
         device: Optional[str | torch.device] = None,
         seed: int = 0,
+        spatial_attn: str = "flat",
         **training_params,
     ):
         # dropout, alpha, beta, v_kl, auto_beta, remat and the loss weights
@@ -241,6 +245,7 @@ class MagePipeline:
             ma_d_model=ma.get("d_model", 512),
             dec_layers=dec.get("layers", 6),
             dec_out_channels=dec.get("out_channels", codebook_size if use_cids else 4),
+            spatial_attn=spatial_attn,
         )
         init_weights(self.core, torch.Generator().manual_seed(seed))
         init_weights(self.first_stage.model, torch.Generator().manual_seed(seed + 1))
@@ -362,14 +367,16 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
 def build_pipeline(config_path: str | os.PathLike = "config/mage_caterv1.yaml",
                    frames_length: Optional[int] = None, *,
                    device: Optional[str | torch.device] = None,
-                   seed: int = 0) -> MagePipeline:
+                   seed: int = 0, spatial_attn: str = "flat") -> MagePipeline:
     """``MagePipeline`` from a YAML config with random weights from ``seed``
     and no first-stage checkpoint (its ``ckpt_path`` is dropped, as the JAX
-    bench does); ``frames_length`` overrides the config's clip length."""
+    bench does); ``frames_length`` overrides the config's clip length and
+    ``spatial_attn`` picks the spatial blocks' route (``MagePipeline``)."""
     cfg = load_config(config_path)
     p = cfg.model.params
     p.first_stage_config.params.pop("ckpt_path", None)
     if frames_length is not None:
         p.frames_length = frames_length
         p.generate_decoder_config.params.frames_length = frames_length
-    return instantiate_from_config(cfg.model, merge={"device": device, "seed": seed})
+    return instantiate_from_config(cfg.model, merge={"device": device, "seed": seed,
+                                                        "spatial_attn": spatial_attn})

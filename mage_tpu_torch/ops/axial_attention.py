@@ -1,12 +1,18 @@
-"""Unmasked multi-head attention along S on a flat (G, S, D) layout.
+"""Spatial axial attention on a flat (G, S, D) layout, alone or as a whole block.
 
-Port of ``mage_tpu/ops/axial_attention.py::axial_slot_attention``: the
-sampler's spatial (H and W) blocks attend over one short axis for G
-independent groups. On a CUDA tensor it launches the hand-written kernel in
-``csrc/axial_attention.cu``; on a CPU tensor, or with ``impl="torch"``, it
-runs ``_axial_plain`` (the math of ``_axial_xla``), the kernel's oracle.
+Port of ``mage_tpu/ops/axial_attention.py``. The sampler's spatial (H and W)
+blocks attend over one short axis for G independent groups.
 
-The whole-block fused variant (``_block_kernel``) is not ported yet.
+- ``axial_slot_attention`` ports ``axial_slot_attention``: the attention
+  alone, between the block's projections. On a CUDA tensor it launches the
+  hand-written kernel in ``csrc/axial_attention.cu``; on a CPU tensor, or
+  with ``impl="torch"``, it runs ``_axial_plain`` (the math of
+  ``_axial_xla``), the kernel's oracle.
+- ``axial_block_fused`` ports ``axial_block_fused`` (the TPU kernel
+  ``_block_kernel``): the whole pre-LN block, LN1 -> QKV -> attention ->
+  out-proj -> residual -> LN2 -> QuickGELU MLP -> residual, in one launch of
+  ``csrc/axial_block.cu``. ``_block_plain`` rounds to x's dtype at the same
+  points as the TPU kernel and is its CPU path and oracle.
 """
 
 from __future__ import annotations
@@ -22,7 +28,16 @@ KERNEL = _build.Kernel(
     "mage_axial_attention",
     [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
 )
+# x, the 16 block parameters and out; G, S, D, n_head, dtype; scale, eps; stream
+KERNEL_BLOCK = _build.Kernel(
+    "mage_axial_block",
+    [ctypes.c_void_p] * 18 + [ctypes.c_int] * 5 + [ctypes.c_float] * 2 + [ctypes.c_void_p],
+)
 _SMEM_LIMIT = 227 * 1024  # bytes of shared memory one Hopper block may use
+# what csrc/axial_block.cu takes (kept equal to its constants)
+BLOCK_MAX_S = 32      # S_MAX: the rows of one group fit one block's 32-row tile
+BLOCK_MAX_D = 512     # D_MAX: the out-proj and c_proj sums of a row fit in registers
+BLOCK_MAX_HD = 64     # one head fits the f32 kernel's 64-column q/k/v chunk
 
 
 def _axial_plain(q, k, v, n_head: int) -> torch.Tensor:
@@ -60,3 +75,77 @@ def axial_slot_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if _build.use_kernel(impl, q):
         return _axial_cuda(q.contiguous(), k.contiguous(), v.contiguous(), n_head)
     return _axial_plain(q, k, v, n_head)
+
+
+# ---- the whole block ---------------------------------------------------------
+
+
+def _block_plain(x: torch.Tensor, params, n_head: int, eps: float) -> torch.Tensor:
+    """Plain version of the whole block on x (G, S, D). ``params`` is
+    (g1, b1, wq, bq, wk, bk, wv, bv, wo, bo, g2, b2, wfc, bfc, wp, bp) with
+    torch's (out, in) weights, cast to x's dtype as the TPU kernel's caller
+    casts them. Products and LayerNorm run in f32; each named intermediate
+    is rounded to x's dtype where the TPU kernel rounds it."""
+    dt = x.dtype
+    g1, b1, wq, bq, wk, bk, wv, bv, wo, bo, g2, b2, wfc, bfc, wp, bp = (
+        p.to(dt).float() for p in params)
+    g, s, d = x.shape
+    hd = d // n_head
+
+    def ln(y, gamma, beta):
+        yf = y.float()
+        mu = yf.mean(-1, keepdim=True)
+        var = ((yf - mu) ** 2).mean(-1, keepdim=True)
+        return ((yf - mu) * torch.rsqrt(var + eps) * gamma + beta).to(dt)
+
+    def mm(a, w, b):
+        return (a.float() @ w.T + b).to(dt)
+
+    h = ln(x, g1, b1)
+    q, k, v = (mm(h, w, b).float().reshape(g, s, n_head, hd)
+               for w, b in ((wq, bq), (wk, bk), (wv, bv)))
+    sc = torch.einsum("gqhd,gkhd->ghqk", q * (1.0 / hd ** 0.5), k)
+    e = torch.exp(sc - sc.amax(-1, keepdim=True))
+    w = e / e.sum(-1, keepdim=True)
+    attn = torch.einsum("ghqk,gkhd->gqhd", w, v).reshape(g, s, d).to(dt)
+    seq = (x.float() + mm(attn, wo, bo).float()).to(dt)
+    fc = mm(ln(seq, g2, b2), wfc, bfc).float()
+    act = (fc * torch.sigmoid(1.702 * fc)).to(dt)
+    return (seq.float() + mm(act, wp, bp).float()).to(dt)
+
+
+def _block_cuda(x: torch.Tensor, params, n_head: int, eps: float) -> torch.Tensor:
+    _build.check_cuda("axial_block_fused", x, *params)
+    if x.dim() != 3:
+        raise ValueError(f"axial_block_fused takes x (G, S, D), got {tuple(x.shape)}")
+    g, s, d = x.shape
+    if d % 16 or d > BLOCK_MAX_D or d % n_head:
+        raise ValueError(f"D={d}: the kernel takes D a multiple of 16 up to "
+                         f"{BLOCK_MAX_D}, divisible by n_head={n_head}")
+    hd = d // n_head
+    if hd % 8 or hd > BLOCK_MAX_HD:
+        raise ValueError(f"head width {hd}: the kernel takes a multiple of 8 up to "
+                         f"{BLOCK_MAX_HD}")
+    if not 1 <= s <= BLOCK_MAX_S:
+        raise ValueError(f"S={s}: the kernel takes 1 <= S <= {BLOCK_MAX_S}")
+    want = [(d,), (d,)] + [(d, d), (d,)] * 4 + [(d,), (d,), (4 * d, d), (4 * d,),
+                                                 (d, 4 * d), (d,)]
+    got = [tuple(p.shape) for p in params]
+    if got != want:
+        raise ValueError(f"block parameter shapes {got}, expected {want}")
+    if any(t.data_ptr() % 16 for t in (x, *params)):
+        raise ValueError("the kernel takes 16-byte aligned tensors")
+    out = torch.empty_like(x)
+    KERNEL_BLOCK(x.data_ptr(), *(p.data_ptr() for p in params), out.data_ptr(),
+                 g, s, d, n_head, _build.dtype_code(x), 1.0 / hd ** 0.5, eps,
+                 _build.stream_ptr(x.device))
+    return out
+
+
+def axial_block_fused(x: torch.Tensor, params, n_head: int, *, eps: float = 1e-5,
+                      impl: str = "auto") -> torch.Tensor:
+    """One whole pre-LN attention + QuickGELU MLP block along S of x
+    (G, S, D) -> (G, S, D); ``params`` as in ``_block_plain``."""
+    if _build.use_kernel(impl, x):
+        return _block_cuda(x.contiguous(), tuple(params), n_head, eps)
+    return _block_plain(x, params, n_head, eps)

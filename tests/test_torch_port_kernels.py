@@ -115,3 +115,50 @@ def test_gn_conv_rejects_what_it_does_not_take(gen):
         gc.gn_silu_conv3x3(x.transpose(1, 2), ones, zeros, weight, zeros)
     with pytest.raises(ValueError):  # a parameter on the CPU
         gc.gn_silu_conv3x3(x, ones, zeros, weight.cpu(), zeros)
+
+
+def _block_params(gen, d, dtype):
+    """The fused block's parameters at normal(0.02) scale, LayerNorms near unit."""
+    def t(*shape, base=0.0, scale=0.02):
+        return (base + torch.randn(*shape, generator=gen, device="cuda") * scale).to(dtype)
+
+    return (t(d, base=1.0, scale=0.1), t(d), t(d, d), t(d), t(d, d), t(d), t(d, d), t(d),
+            t(d, d), t(d), t(d, base=1.0, scale=0.1), t(d), t(4 * d, d), t(4 * d),
+            t(d, 4 * d), t(d))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("g,s,d,heads", [(37, 7, 64, 2), (3, 16, 512, 16), (10, 1, 96, 3)])
+def test_axial_block_kernel_matches_plain(gen, dtype, g, s, d, heads):
+    """Ragged G against the kernel's 32-row tile. bf16: one rounding step of
+    each value plus 2**-7 of the largest |output|, for an intermediate (seq,
+    whose residual reaches the output) that rounds to its neighbouring bf16
+    value (the kernel and the plain version sum in other orders)."""
+    x = torch.randn(g, s, d, generator=gen, device="cuda").to(dtype)
+    params = _block_params(gen, d, dtype)
+    before = ax.KERNEL_BLOCK.launches
+    got = ax.axial_block_fused(x, params, heads)
+    assert ax.KERNEL_BLOCK.launches == before + 1
+    want = ax.axial_block_fused(x, params, heads, impl="torch")
+    assert got.shape == (g, s, d) and got.dtype == dtype
+    scale = float(want.float().abs().max())
+    tol = TOL[dtype] if dtype == torch.float32 else dict(rtol=2**-7, atol=2**-7 * scale)
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+def test_axial_block_rejects_what_it_does_not_take(gen):
+    x = torch.randn(4, 8, 64, generator=gen, device="cuda")
+    params = _block_params(gen, 64, torch.float32)
+    with pytest.raises(ValueError):  # a CPU tensor
+        ax._block_cuda(x.cpu(), tuple(p.cpu() for p in params), 2, 1e-5)
+    with pytest.raises(TypeError):  # mixed dtypes
+        ax.axial_block_fused(x.to(torch.bfloat16), params, 2)
+    with pytest.raises(ValueError):  # not contiguous
+        ax._block_cuda(x.transpose(0, 1), params, 2, 1e-5)
+    with pytest.raises(ValueError):  # a weight that is not contiguous
+        ax.axial_block_fused(x, params[:2] + (params[2].T,) + params[3:], 2)
+    with pytest.raises(ValueError):  # 64 % 3 != 0
+        ax.axial_block_fused(x, params, 3)
+    with pytest.raises(ValueError):  # S past the limit
+        ax.axial_block_fused(torch.randn(2, ax.BLOCK_MAX_S + 1, 64, generator=gen,
+                                         device="cuda"), params, 2)

@@ -209,7 +209,8 @@ _FORBIDDEN = re.compile(r"^\s*(?:import|from)\s+(jax|flax|optax|orbax|mage_tpu)\
 
 
 def test_no_jax_or_mage_tpu_import_in_the_port():
-    files = sorted((ROOT / "mage_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted((ROOT / "mage_tpu_torch").rglob("*.py")) + [
+        ROOT / name for name in ("chip_smoke.py", "gn_conv_probe.py", "axial_block_probe.py")]
     hits = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
             for f in files for m in _FORBIDDEN.finditer(f.read_text())]
     assert not hits, hits
