@@ -8,7 +8,8 @@ fatal on failure (exit code 1; 2 when there is no GPU or no package):
 2. build the Hopper kernels from ``mage_tpu_torch/csrc`` with ``nvcc``;
 3. each kernel at its path's shapes, in bf16 and f32, against its plain
    PyTorch version on the same inputs (TF32 off), and timed beside the plain
-   version and, where one exists, a single PyTorch library call;
+   version and, where one exists, a single PyTorch library call (the
+   GroupNorm statistics kernel that feeds gn_conv has a row of its own);
 4. the MAGE path: ``MagePipeline.generate`` for ``config/mage_caterv1.yaml``
    at full width, 16 frames, batch 32, bf16, random weights from a seed,
    with the kernels' launch counts read around one call;
@@ -78,6 +79,32 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(torch, fn, iters: int = 20) -> float:
+    """Device time of ``fn`` a call: ``iters`` calls captured in a CUDA
+    graph and replayed (after a warm-up outside it), so that no host launch
+    cost is timed. For kernels shorter than their wrapper's host work."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (3 * iters)
 
 
 def bound_ms(nbytes: float, flops: float,
@@ -201,10 +228,17 @@ def check_cached(torch, F, ca, gen) -> dict:
 
 
 def check_gn_conv(torch, F, gc, gen) -> dict:
-    """Each decoder site class at the 96-frame chunk, in bf16 and f32, kernel
-    against the plain version (TF32 off): f32 within 1e-5 of the output's
-    largest magnitude (sums of up to 4608 products in another order), bf16
-    within one rounding step plus ``GN_BF16_ATOL``. Timed in bf16 beside the
+    """Each decoder site class at the 96-frame chunk, in bf16 and f32: the
+    op's output against the plain conv (``silu_conv3x3_rows``, TF32 off) on
+    the affine rows the statistics kernel gave it, so the conv kernel is held
+    to its own plain version on the same inputs: f32 within 1e-5 of the
+    output's largest magnitude (sums of up to 4608 products in another
+    order), bf16 within one rounding step plus ``GN_BF16_ATOL``. The
+    statistics kernel is held to ``gn_affine_rows`` in ``check_gn_stats``;
+    the distance to the whole plain chain, whose rows differ from the
+    kernel's by about 3e-7 (another sum order), is printed: a few bf16
+    activations near a rounding boundary then round the other way. Timed in
+    bf16 beside the
     plain version, cuDNN's conv alone on the already-activated input (it
     does less work: no statistics, no affine, no SiLU), and the unfused bf16
     chain the kernel replaces: ``F.group_norm``, SiLU and a channels-last
@@ -223,7 +257,8 @@ def check_gn_conv(torch, F, gc, gen) -> dict:
             bias = torch.randn(cout, generator=gen, device="cuda") * 0.1
             args = (x, gamma, beta, weight, bias)
             got = gc.gn_silu_conv3x3(*args).float()
-            want = gc.gn_silu_conv3x3(*args, impl="torch").float()
+            a, b = gc.gn_stats(x, gamma, beta)  # the rows the op used (deterministic)
+            want = gc.silu_conv3x3_rows(x, a, b, weight, bias).float()
             e = float((got - want).abs().max())
             if dtype == torch.float32:
                 ok = e <= F32_TOL * float(want.abs().max())
@@ -232,8 +267,13 @@ def check_gn_conv(torch, F, gc, gen) -> dict:
                 err = max(err, e)
             if not ok:
                 raise AssertionError(f"gn_conv {dtype} H={hw} {c}->{cout}: max abs err {e}")
-            del got, want
-        a, b = gc.gn_affine_rows(x, gamma, beta, 32, 1e-6)
+            whole = gc.gn_silu_conv3x3(*args, impl="torch").float()
+            past = int(((got - whole).abs() > GN_BF16_ATOL + BF16_RTOL * whole.abs()).sum())
+            log(f"gn_conv {str(dtype)[6:]} H={hw} {c}->{cout}: max |kernel - plain on its "
+                f"rows| {e}; against the whole plain chain max "
+                f"{float((got - whole).abs().max())}, {past} of {got.numel()} past one step "
+                f"+ {GN_BF16_ATOL}")
+            del got, want, whole
         h = F.silu(x.float() * a[:, None, None, :] + b[:, None, None, :]).to(x.dtype)
         h = h.permute(0, 3, 1, 2)  # channels-last NCHW view
         w_cl = weight.to(x.dtype).contiguous(memory_format=torch.channels_last)
@@ -271,6 +311,61 @@ def check_gn_conv(torch, F, gc, gen) -> dict:
         "bound_ms": totals["bound_ms"] / n_gen, "bound_by": by, "library_ms": None,
         "conv_only_ms": totals["conv_only_ms"] / n_gen,
         "unfused_ms": totals["unfused_ms"] / n_gen,
+    }
+
+
+def check_gn_stats(torch, gc, gen) -> dict:
+    """The GroupNorm statistics kernel at each decoder site class (96-frame
+    chunk, 32 groups), in f32 and bf16, against ``gn_affine_rows``: a and b
+    within 1e-5 relative (sums of up to 262144 values in another order), and
+    bit-equal over two runs. Timed in bf16 beside the plain version and one
+    ``torch.var_mean`` over the grouped view, the one PyTorch call that
+    computes the same moments, all three as device time (``graph_ms``: the
+    wrapper's host work outlasts the kernel at the 16- and 32-px classes);
+    launch-weighted over one generate."""
+    err = 0.0
+    totals = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+    per_class = []
+    for (hw, c, _), calls in GN_CONV_SITES.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            x = (torch.randn(KL_CHUNK, hw, hw, c, generator=gen, device="cuda") * 2
+                 + 0.5).to(dtype)
+            gamma = torch.randn(c, generator=gen, device="cuda") * 0.5 + 1
+            beta = torch.randn(c, generator=gen, device="cuda") * 0.2
+            got = gc.gn_stats(x, gamma, beta)
+            want = gc.gn_stats(x, gamma, beta, impl="torch")
+            again = gc.gn_stats(x, gamma, beta)
+            torch.cuda.synchronize()
+            for g, w, g2 in zip(got, want, again):
+                e = float((g - w).abs().max())
+                if not torch.allclose(g, w, rtol=1e-5, atol=1e-5 * float(w.abs().max())):
+                    raise AssertionError(f"gn_stats {dtype} H={hw} C={c}: max abs err {e}")
+                if not torch.equal(g, g2):
+                    raise AssertionError(f"gn_stats {dtype} H={hw} C={c}: two runs differ")
+                if dtype == torch.bfloat16:
+                    err = max(err, e)
+        xg = x.view(KL_CHUNK, hw * hw, 32, c // 32)
+        bnd, _ = bound_ms(x.numel() * 2 + (2 * c + 2 * KL_CHUNK * c) * 4, 3.0 * x.numel())
+        row = {"H": hw, "C": c,
+               "ms": graph_ms(torch, lambda: gc.gn_stats(x, gamma, beta)),
+               "plain_ms": graph_ms(torch, lambda: gc.gn_stats(x, gamma, beta, impl="torch"),
+                                    iters=5),
+               "library_ms": graph_ms(torch, lambda: torch.var_mean(xg, dim=(1, 3))),
+               "bound_ms": bnd}
+        per_class.append(row)
+        n = calls * (BATCH * (FRAMES - 1) // KL_CHUNK)
+        for key in totals:
+            totals[key] += n * row[key]
+        del x, xg
+    log("gn_stats per class (bf16, 96-frame chunk): " + json.dumps(per_class))
+    log("gn_stats per generate (140 launches, bf16): " + json.dumps(totals))
+    n_gen = sum(GN_CONV_SITES.values()) * (BATCH * (FRAMES - 1) // KL_CHUNK)
+    return {
+        "name": "gn_stats", "route": "cuda", "source": "mage_tpu_torch/csrc/gn_stats.cu",
+        "replaces": "mage_tpu/ops/gn_conv.py:40", "max_abs_err": err,
+        "ms": totals["ms"] / n_gen, "plain_ms": totals["plain_ms"] / n_gen,
+        "bound_ms": totals["bound_ms"] / n_gen, "bound_by": "bytes",
+        "library_ms": totals["library_ms"] / n_gen,
     }
 
 
@@ -567,13 +662,13 @@ def main() -> int:
         gen = torch.Generator(device="cuda").manual_seed(0)
         rows = [check_vq(torch, vq, gen), check_axial(torch, F, ax, gen),
                 check_cached(torch, F, ca, gen), check_gn_conv(torch, F, gc, gen),
-                check_axial_block(torch, ax, tl, gen)]
+                check_gn_stats(torch, gc, gen), check_axial_block(torch, ax, tl, gen)]
         kernels = {"vq_nearest": vq.KERNEL, "axial_slot_attention": ax.KERNEL,
                    "cached_slot_attention": ca.KERNEL, "gn_silu_conv3x3": gc.KERNEL,
-                   "axial_block_fused": ax.KERNEL_BLOCK}
+                   "gn_stats": gc.KERNEL_STATS, "axial_block_fused": ax.KERNEL_BLOCK}
         mage, mage_path = run_main_path(torch, np, build_pipeline, kernels, smi, want={
             "vq_nearest": 1, "axial_slot_attention": 4 * FRAMES,
-            "cached_slot_attention": 2 * FRAMES, "gn_silu_conv3x3": 0,
+            "cached_slot_attention": 2 * FRAMES, "gn_silu_conv3x3": 0, "gn_stats": 0,
             "axial_block_fused": 0})
         run_reference_check(torch, np, build_pipeline)
         n_gn = sum(GN_CONV_SITES.values()) * (BATCH * (FRAMES - 1) // KL_CHUNK)
@@ -581,11 +676,12 @@ def main() -> int:
                                  "config/mage+_caterv2.yaml", want={
                                      "vq_nearest": 0, "axial_slot_attention": 4 * FRAMES,
                                      "cached_slot_attention": 2 * FRAMES,
-                                     "gn_silu_conv3x3": n_gn, "axial_block_fused": 0})
+                                     "gn_silu_conv3x3": n_gn, "gn_stats": n_gn,
+                                     "axial_block_fused": 0})
         run_magep_reference_check(torch, np, build_pipeline)
         fused, fused_path = run_main_path(torch, np, build_pipeline, kernels, smi, want={
             "vq_nearest": 1, "axial_slot_attention": 0,
-            "cached_slot_attention": 2 * FRAMES, "gn_silu_conv3x3": 0,
+            "cached_slot_attention": 2 * FRAMES, "gn_silu_conv3x3": 0, "gn_stats": 0,
             "axial_block_fused": 4 * FRAMES}, spatial_attn="fusedblock")
         log("MAGE fusedblock beside flat: " + json.dumps({
             key: {"flat": mage_path[key], "fusedblock": fused_path[key]}
@@ -594,7 +690,7 @@ def main() -> int:
         run_magep_reference_check(torch, np, build_pipeline, spatial_attn="fusedblock")
         run_magep_reference_check(torch, np, build_pipeline, spatial_attn="fusedblock",
                                   cached=False, length=4)
-        paths = {"gn_silu_conv3x3": magep, "axial_block_fused": fused}
+        paths = {"gn_silu_conv3x3": magep, "gn_stats": magep, "axial_block_fused": fused}
         for row in rows:  # each kernel's launches on the path that runs it
             row["launches"] = paths.get(row["name"], mage)[row["name"]]
             row.setdefault("conv_only_ms", None)

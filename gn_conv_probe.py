@@ -4,15 +4,20 @@
 Run from the repository root with ``python3 gn_conv_probe.py``. It builds
 ``mage_tpu_torch/csrc/gn_conv.cu`` once per variant (one ``nvcc`` each, all
 started together, into ``mage_tpu_torch/_build/probe/``) with the kernel's
-probe switches (``GN_CONV_PROBE_SKIP``, ``GN_CONV_KC``; see the head of the
-source) or ``--use_fast_math``, and times each variant's bf16 kernel alone,
-CUDA events after warm-up, at the KL decoder's six shape classes in a
-96-frame chunk (``chip_smoke.GN_CONV_SITES``). The variants that drop a part
-compute a wrong output: the time they save is what that part costs. Beside
-them it times the wrapper's other work: the GroupNorm statistics
-(``gn_affine_rows``) and the weight packing. Every variant runs twice, in
-alternating rounds, so drift between rounds shows. The variants that still
-compute the full result are held against the plain version.
+probe switches (see the head of the source): ``GN_CONV_PROBE_SKIP`` drops
+the activation pass (1), the weight TMA (2), the halo TMA (4) or the
+``wgmma`` products (8); one variant adds ``--use_fast_math``. It times each variant's bf16 kernel alone, CUDA
+events after warm-up, at the KL decoder's six shape classes in a 96-frame
+chunk (``chip_smoke.GN_CONV_SITES``). The variants that drop a part compute
+a wrong output: the time they save is what that part costs, and parts that
+overlap save less than they cost alone. Beside them it times the wrapper's
+other work: the GroupNorm statistics kernel (``gn_stats``) and its plain
+version (``gn_affine_rows``), as device time (``chip_smoke.graph_ms``: the
+calls replayed from a CUDA graph, since the wrapper's host work outlasts the
+kernel at the small classes), and the weight packing, which the wrapper now
+does once per parameter. Every variant runs twice, in alternating rounds,
+so drift between rounds shows. The variants that still compute the full
+result are held against the plain conv on the same affine rows.
 
 Prints one line per (class, variant), the sums over one MAGE+ generate's
 140 launches (the faster round of each class), and, last, one JSON object
@@ -27,20 +32,21 @@ import subprocess
 import sys
 from pathlib import Path
 
-from chip_smoke import BATCH, BF16_TC_FLOP_PER_S, FRAMES, GN_CONV_SITES, KL_CHUNK, time_ms
+from chip_smoke import (BATCH, BF16_TC_FLOP_PER_S, FRAMES, GN_CONV_SITES, KL_CHUNK,
+                        graph_ms, time_ms)
 
 # name -> extra nvcc flags; "exact" variants still compute the full result
 VARIANTS = {
     "base": [],
     "no_act": ["-DGN_CONV_PROBE_SKIP=1"],
-    "no_wload": ["-DGN_CONV_PROBE_SKIP=2"],
-    "no_mma": ["-DGN_CONV_PROBE_SKIP=8"],
-    "no_act_no_wload": ["-DGN_CONV_PROBE_SKIP=3"],
-    "only_mma": ["-DGN_CONV_PROBE_SKIP=7"],
+    "no_wtma": ["-DGN_CONV_PROBE_SKIP=2"],
+    "no_halo_tma": ["-DGN_CONV_PROBE_SKIP=4"],
+    "no_wgmma": ["-DGN_CONV_PROBE_SKIP=8"],
+    "only_wgmma": ["-DGN_CONV_PROBE_SKIP=7"],
+    "only_act": ["-DGN_CONV_PROBE_SKIP=14"],
     "fastmath": ["--use_fast_math"],
-    "kc64": ["-DGN_CONV_KC=64"],
 }
-EXACT = ("base", "fastmath", "kc64")
+EXACT = ("base", "fastmath")
 ROUNDS = 2
 
 
@@ -62,7 +68,7 @@ def build_variants(build_mod) -> dict:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for variant {name}:\n{log}")
         fn = ctypes.CDLL(str(lib)).mage_gn_silu_conv3x3
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         fns[name] = fn
     return fns
@@ -92,17 +98,17 @@ def main() -> int:
         beta = torch.randn(c, generator=gen, device="cuda") * 0.2
         weight = torch.randn(cout, c, 3, 3, generator=gen, device="cuda") / (9 * c) ** 0.5
         bias = torch.randn(cout, generator=gen, device="cuda") * 0.1
-        a, shift = gc.gn_affine_rows(x, gamma, beta, 32, 1e-6)
-        wk = weight.to(x.dtype).permute(0, 2, 3, 1).reshape(cout, 9 * c).contiguous()
-        bias32 = bias.float().contiguous()
+        a, shift = gc.gn_stats(x, gamma, beta)
+        wk, bias32 = gc._packed(weight, bias, x.dtype)
         out = torch.empty((KL_CHUNK, hw, hw, cout), dtype=x.dtype, device="cuda")
-        want = gc.gn_silu_conv3x3(x, gamma, beta, weight, bias, impl="torch").float()
+        act = torch.empty_like(x)
+        want = gc.silu_conv3x3_rows(x, a, shift, weight, bias).float()
         flops = 2.0 * KL_CHUNK * hw * hw * 9 * c * cout
 
         def launch(name):
             err = fns[name](x.data_ptr(), a.data_ptr(), shift.data_ptr(), wk.data_ptr(),
-                            bias32.data_ptr(), out.data_ptr(), KL_CHUNK, hw, hw, c, cout,
-                            _build.dtype_code(x), stream)
+                            bias32.data_ptr(), out.data_ptr(), act.data_ptr(), KL_CHUNK, hw,
+                            hw, c, cout, _build.dtype_code(x), stream)
             if err:
                 raise RuntimeError(f"variant {name}: CUDA error {err}")
 
@@ -117,8 +123,10 @@ def main() -> int:
             row["ms"].setdefault("wrapper", []).append(
                 time_ms(lambda: gc.gn_silu_conv3x3(x, gamma, beta, weight, bias), iters=10))
             row["ms"].setdefault("stats", []).append(
-                time_ms(lambda: gc.gn_affine_rows(x, gamma, beta, 32, 1e-6), iters=10))
-            row["ms"].setdefault("pack", []).append(time_ms(
+                graph_ms(torch, lambda: gc.gn_stats(x, gamma, beta), iters=10))
+            row["ms"].setdefault("stats_plain", []).append(
+                graph_ms(torch, lambda: gc.gn_affine_rows(x, gamma, beta, 32, 1e-6), iters=5))
+            row["ms"].setdefault("pack_once", []).append(time_ms(
                 lambda: (weight.to(x.dtype).permute(0, 2, 3, 1).reshape(cout, 9 * c)
                          .contiguous(), bias.float().contiguous()), iters=10))
         for name, ms in row["ms"].items():

@@ -1,6 +1,7 @@
 // Shared helpers for the mage_tpu_torch kernels: dtype codes (kept equal to
 // _build.DTYPE_CODES), conversions to and from the f32 the kernels compute
-// in, and the cp.async / ldmatrix / mma.sync wrappers of the bf16 kernels.
+// in, the shared-memory address of a pointer, and the mma.sync wrapper of the
+// fused block kernel.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -22,27 +23,6 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte copy to shared memory; src_bytes = 0 writes zeros and reads nothing
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_addr(dst)), "l"(src), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const __nv_bfloat16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
 }
 
 // d += a (16 x 16, row) * b (16 x 8, col), bf16 in, f32 accumulators

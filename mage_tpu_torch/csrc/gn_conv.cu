@@ -2,62 +2,86 @@
 //
 // Replaces the TPU kernel mage_tpu/ops/gn_conv.py::_kernel (wrapper
 // gn_silu_conv3x3). For x (B, H, W, C) NHWC and per-(image, channel) affine
-// rows a, b (B, C) in f32 (the GroupNorm statistics, reduced outside), it
+// rows a, b (B, C) in f32 (the GroupNorm statistics, from gn_stats.cu), it
 // computes
 //   out[n,y,x,o] = bias[o] + sum_{dy,dx,c} h[n,y+dy-1,x+dx-1,c] * w[o,dy,dx,c]
 //   h = round_to_x_dtype(silu(x * a + b)), and h = 0 outside the image,
 // so the zero padding applies after the activation (silu(b) != 0). Products
 // accumulate in f32; the bias is added in f32 and the result is rounded once
-// to x's dtype. The activated tensor h never reaches device memory.
+// to x's dtype.
 //
 // Bound: per 128-px decoded frame the decoder's 28 fused convs do ~109 GFLOP
 // against a few hundred MB of activations, so every call on the main path is
 // bound by operations: bf16 runs on the tensor cores (989 TFLOP/s dense on
 // an H100 SXM), f32 on the CUDA cores (67 TFLOP/s).
 //
-// Design (a simple kernel that is right; wgmma, TMA and a persistent
-// schedule are later work): an implicit GEMM with M = output pixels, N = Cout
-// and K = 9 * C. A block owns an 8 x 16 tile of output pixels of one image and
-// a tile of output channels. It walks C in chunks; for each chunk it loads the
-// 10 x 18 halo of the tile once into shared memory and applies the affine,
-// the SiLU, the ring mask and the rounding there (the TPU kernel's XLA halo
-// gather is not needed: the block bounds-checks its own halo); the nine taps
-// then read shifted windows of the same halo tile against the packed weight
-// (Cout, 9 * C).
-//   bf16: 4 warps, each 64 pixels x 64 channels of a 128 x 128 tile,
-//         mma.sync m16n8k16 with f32 accumulators, fragments loaded with
-//         ldmatrix from rows padded to 80 bytes (conflict-free). The weights
-//         of each (chunk, tap) step come through a 3-stage cp.async ring two
-//         steps ahead; the raw halo comes by cp.async into one of two
-//         buffers and each thread activates, in place, the vectors it
-//         copied. The output tile is staged in shared memory and leaves as
-//         16-byte stores. 59.5 KB of shared memory, 3 blocks per SM.
-//         It reaches a fifth of the bf16 peak at the decoder's shapes
-//         (PERF.md); wgmma is the way to the rest.
-//   f32:  the same tiling on the CUDA cores (no TF32): 256 threads, each
-//         4 pixels x 8 channels of a 128 x 64 tile, fmaf.
+// bf16 design, for sm_90a, in two launches from one entry point:
+//   1. gn_act_bf16, the activation once per element: h = round_to_bf16(silu(
+//      x * a + b)) for every element of x, written to a scratch tensor laid
+//      out (B, C / 8, H, W, 8). Bound by bytes (2 read, 2 written a value).
+//   2. gn_conv_bf16, an implicit GEMM with M = output pixels, N = Cout and K =
+//      9 * C, warp-specialised. A block (288 threads) owns a 16 x 8 tile of
+//      output pixels of one image and BN = 256 output channels (128 when Cout
+//      < 256). It walks C in chunks of 64 channels, nine taps a chunk.
+//      - Producer (one thread of warp 8): TMA copies only. Each chunk's halo
+//        of h, (16 + 2) x (8 + 2) pixels x 64 channels, comes through a 5-D
+//        tensor map over h's (8, W, H, C / 8, B) view with box (8, 10, 18, 8,
+//        1) at (0, x0 - 1, y0 - 1, 8 * chunk, image): it lands as [8-channel
+//        group][row][column][8 channels], the no-swizzle K-major layout a
+//        wgmma descriptor reads, into one of two buffers. TMA writes zeros
+//        outside the image (negative coordinates included) and past C, and
+//        those zeros are the conv's padding, which applies after the
+//        activation. The weight, packed (Cout, 9 * C), comes through a 3-D
+//        tensor map over its (C, 9, Cout) view: a box of 64 channels x 1 tap x
+//        BN rows with the 128-byte swizzle per (chunk, tap) step, into a ring
+//        with full/empty mbarriers: 160 KB (5 stages) at BN = 256, 48 KB (3
+//        stages) at BN = 128, where two blocks share an SM so that one
+//        block's first loads and epilogue overlap the other's products.
+//      - Consumers (warpgroups 0 and 1): warpgroup g owns tile rows 8g .. 8g
+//        + 7, 64 pixels x BN channels of f32 accumulators, and only issues
+//        wgmma.mma_async m64nBNk16 with both operands in shared memory (SS),
+//        four a tap, one commit group a tap; wait_group keeps IN_FLIGHT (1)
+//        tap queued while the next is issued, and a weight stage or a halo
+//        buffer goes back to the producer (one mbarrier arrival a warp) when
+//        the products that read it are done. A comes from shared memory
+//        because the tile is 8 pixels wide: each 8-row core matrix of A is one
+//        tile row, 8 neighbouring halo pixels, and core matrices follow each
+//        other at the uniform 10-pixel halo row pitch (stride byte offset 160
+//        B; the 8-channel groups are the leading byte offset, 2880 B apart).
+//      - Epilogue: + bias in f32, one rounding, staged in shared memory (the
+//        weight ring, free once both warpgroups are done) and stored as
+//        16-byte rows, masked at ragged edges.
+//      Shared memory at BN = 256: the 160 KB ring, two 22.5 KB halo buffers,
+//      14 mbarriers, 206 KB with 1 KB kept to align the swizzled stages to
+//      1024 B: one block per SM, whose 168 registers a thread cover the 128
+//      f32 accumulators without setmaxnreg. At BN = 128: 94 KB and at most
+//      112 registers, two blocks per SM.
+//   Why the activation is a pass of its own: the exact SiLU (accurate expf,
+//   IEEE division) costs some 25 instructions an element. Done inside the
+//   conv, by the consumer warps between their taps or by dedicated activator
+//   warps, it did not overlap the tensor cores' work and cost 52 ms of a
+//   125 ms kernel per MAGE+ generate (PERF.md), while a pass over x and h
+//   costs bytes at the memory's rate, once per element.
+// f32 design (the SIMT twin the f32 checks use): the same implicit GEMM on
+// the CUDA cores (no TF32), one launch that activates its own halo in shared
+// memory: 256 threads, each 4 pixels x 8 channels of an 8 x 16-pixel x
+// 64-channel tile, fmaf.
 // C and Cout must be multiples of 16 (the wrapper checks); B, H and W are any.
 //
-// Probe switches (gn_conv_probe.py builds variants with -D; the library is
-// built with neither): GN_CONV_KC sets the bf16 chunk of input channels, and
-// the bits of GN_CONV_PROBE_SKIP drop one part of the bf16 kernel to time the
-// rest (the output is then wrong): 1 the activation, 2 the weight loads, 4 the
-// halo loads, 8 the mma.sync products.
+// Probe switch (gn_conv_probe.py builds variants with -D; the library is built
+// without it): the bits of GN_CONV_PROBE_SKIP drop one part of the bf16 path
+// to time the rest (the output is then wrong): 1 the activation pass, 2 the
+// weight TMA, 4 the halo TMA, 8 the wgmma products. A dropped copy still
+// arrives on its barrier, so the pipeline keeps its shape.
+#include <cuda.h>  // CUtensorMap; cuTensorMapEncodeTiled is fetched from the driver at run time
+
 #include "common.cuh"
 
-#ifndef GN_CONV_KC
-#define GN_CONV_KC 32
-#endif
 #ifndef GN_CONV_PROBE_SKIP
 #define GN_CONV_PROBE_SKIP 0
 #endif
 
 namespace {
-
-constexpr int TR = 8;                   // output rows of a block tile
-constexpr int TC = 16;                  // output columns of a block tile
-constexpr int HC = TC + 2;              // halo columns
-constexpr int HP = (TR + 2) * HC;       // halo pixels (180)
 
 // x * a + b as two rounded f32 operations (no contraction into an FMA) and
 // silu(h) = h / (1 + exp(-h)): the same roundings as the plain PyTorch version.
@@ -65,6 +89,387 @@ __device__ __forceinline__ float affine_silu(float x, float a, float b) {
   const float h = __fadd_rn(__fmul_rn(x, a), b);
   return h / (1.0f + expf(-h));
 }
+
+// ---------------------------------------------------------------- bf16 ----
+
+constexpr int SKIP = GN_CONV_PROBE_SKIP;
+constexpr int RING_BYTES = 160 * 1024;        // the weight ring at BN = 256
+constexpr int RING_SMALL_BYTES = 48 * 1024;   // and at BN = 128
+constexpr int IN_FLIGHT = 1;  // taps of wgmma a warpgroup keeps queued (2 measured slower)
+constexpr int QR = 16;                  // output rows of a block tile
+constexpr int QC = 8;                   // output columns of a block tile
+constexpr int QHC = QC + 2;             // halo columns (10)
+constexpr int HALO_PX = (QR + 2) * QHC;  // halo pixels (180)
+constexpr int KC = 64;                  // channels of one chunk
+constexpr int KG = KC / 8;              // its 8-channel groups
+constexpr int WG_ROWS = QR / 2;         // tile rows of one consumer warpgroup
+constexpr int HALO_KG = HALO_PX * 16;   // bytes of one 8-channel group plane (2880)
+constexpr int HALO_BYTES = KG * HALO_KG;  // one activated halo box
+constexpr int CONSUMERS = 256;          // two warpgroups of products
+constexpr int CONSUMER_WARPS = CONSUMERS / 32;
+constexpr int THREADS = CONSUMERS + 32;  // and one producer warp
+constexpr int ACT_THREADS = 256;        // threads of an activation block (one 8-channel
+                                        // group of 256 pixels)
+
+template <int BN>
+struct Layout {
+  // BN = 128 keeps a 48 KB ring so that two blocks share an SM: one block's
+  // first loads and epilogue overlap the other's products
+  static constexpr int BLOCKS_PER_SM = BN == 128 ? 2 : 1;
+  static constexpr int W_STAGE = BN * KC * 2;
+  static constexpr int STAGES = (BN == 128 ? RING_SMALL_BYTES : RING_BYTES) / W_STAGE;
+  static constexpr int HALO_OFF = STAGES * W_STAGE;
+  static constexpr int BAR_OFF = HALO_OFF + 2 * HALO_BYTES;
+  static constexpr int BYTES = BAR_OFF + (2 * STAGES + 4) * 8;
+  static constexpr int SMEM = BYTES + 1024;  // room to align the base to 1024 B
+  static constexpr int OUT_PITCH = BN + 8;   // staged output row (elements)
+  static_assert(IN_FLIGHT >= 1 && IN_FLIGHT < STAGES, "a stage must be free to load");
+  static_assert(QR * QC * OUT_PITCH * 2 <= STAGES * W_STAGE, "output tile must fit");
+  static_assert(SMEM <= 232448, "more shared memory than a block may use");
+  static_assert(SMEM * BLOCKS_PER_SM <= 233472 - 1024 * BLOCKS_PER_SM,
+                "more shared memory than the blocks of an SM may use");
+};
+
+using mage::smem_addr;
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("{\n.reg .b64 state;\nmbarrier.arrive.shared::cta.b64 state, [%0];\n}\n"
+               :: "r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ uint32_t mbar_try_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  return done;
+}
+
+// wait for the phase of the given parity to complete; a wait of more than
+// two seconds is a lost arrival: fail the launch rather than hang the card
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  uint64_t t0, t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t0));
+  while (!mbar_try_wait(bar, parity)) {
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    if (t - t0 > 2000000000ull) __trap();
+  }
+}
+
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_5d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6, %7}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2),
+         "r"(c3), "r"(c4)
+      : "memory");
+}
+
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
+}
+
+// wgmma shared-memory matrix descriptor: start address, leading and stride
+// byte offsets (16-byte units), layout (0 no swizzle, 1 128-byte swizzle)
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
+                                              uint64_t layout) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (layout << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// d (64 x N, f32, the warpgroup's fragment layout) += A (64 x 16) * B (16 x N),
+// both bf16 from shared memory by descriptor, neither transposed (K-major)
+__device__ __forceinline__ void wgmma_m64n256(float (&d)[128], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_m64n128(float (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <int BN>
+__device__ __forceinline__ void wgmma_tile(float (&d)[BN / 2], uint64_t da, uint64_t db);
+template <>
+__device__ __forceinline__ void wgmma_tile<256>(float (&d)[128], uint64_t da, uint64_t db) {
+  wgmma_m64n256(d, da, db);
+}
+template <>
+__device__ __forceinline__ void wgmma_tile<128>(float (&d)[64], uint64_t da, uint64_t db) {
+  wgmma_m64n128(d, da, db);
+}
+
+struct Bf16Args {
+  const float* a;
+  const float* b;
+  const float* bias;
+  __nv_bfloat16* out;
+  int H, W, C, Cout, tiles_x, tiles_y, n_tiles;
+};
+
+// h[n][g][y][x][:] = round_to_bf16(silu(x[n][y][x][8g .. 8g + 7] * a + b)): one
+// 16-byte vector a thread; a block owns one 8-channel group of 256 pixels,
+// so its stores are one contiguous 4 KB run, and neighbouring blocks take
+// the other groups of the same pixels (their loads share L2 sectors)
+__global__ void __launch_bounds__(ACT_THREADS)
+gn_act_bf16(const __nv_bfloat16* __restrict__ x, const float* __restrict__ a,
+            const float* __restrict__ b, __nv_bfloat16* __restrict__ h, int hw, int C) {
+  const int groups = C / 8, tiles = (hw + ACT_THREADS - 1) / ACT_THREADS;
+  const int g = blockIdx.x % groups, img = blockIdx.x / groups / tiles;
+  const int px = (blockIdx.x / groups) % tiles * ACT_THREADS + threadIdx.x;
+  if (px >= hw) return;
+  const size_t row = static_cast<size_t>(img) * C + 8 * g;
+  const float4 a0 = __ldg(reinterpret_cast<const float4*>(a + row));
+  const float4 a1 = __ldg(reinterpret_cast<const float4*>(a + row + 4));
+  const float4 b0 = __ldg(reinterpret_cast<const float4*>(b + row));
+  const float4 b1 = __ldg(reinterpret_cast<const float4*>(b + row + 4));
+  const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+  const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+  const uint4 raw = __ldg(reinterpret_cast<const uint4*>(
+      x + (static_cast<size_t>(img) * hw + px) * C + 8 * g));
+  const __nv_bfloat162* xv = reinterpret_cast<const __nv_bfloat162*>(&raw);
+  uint32_t hv[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float2 xf = __bfloat1622float2(xv[k]);
+    const __nv_bfloat162 h2 =
+        __floats2bfloat162_rn(affine_silu(xf.x, av[2 * k], bv[2 * k]),
+                              affine_silu(xf.y, av[2 * k + 1], bv[2 * k + 1]));
+    hv[k] = *reinterpret_cast<const uint32_t*>(&h2);
+  }
+  *reinterpret_cast<uint4*>(h + ((static_cast<size_t>(img) * groups + g) * hw + px) * 8) =
+      make_uint4(hv[0], hv[1], hv[2], hv[3]);
+}
+
+template <int BN>
+__global__ void __launch_bounds__(THREADS, Layout<BN>::BLOCKS_PER_SM)
+gn_conv_bf16(const __grid_constant__ CUtensorMap hmap, const __grid_constant__ CUtensorMap wmap,
+             Bf16Args p) {
+  using L = Layout<BN>;
+  constexpr int STAGES = L::STAGES;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  const uint32_t base = smem_addr(smem);
+  const uint32_t w_smem = base, halo_smem = base + L::HALO_OFF, bars = base + L::BAR_OFF;
+  auto w_full = [&](int i) { return bars + 8 * i; };
+  auto w_empty = [&](int i) { return bars + 8 * (STAGES + i); };
+  auto halo_full = [&](int j) { return bars + 8 * (2 * STAGES + j); };
+  auto halo_empty = [&](int j) { return bars + 8 * (2 * STAGES + 2 + j); };
+
+  // channel tiles vary fastest: neighbouring blocks share a halo in L2
+  int s = blockIdx.x;
+  const int n0 = (s % p.n_tiles) * BN;
+  s /= p.n_tiles;
+  const int x0 = (s % p.tiles_x) * QC;
+  s /= p.tiles_x;
+  const int y0 = (s % p.tiles_y) * QR;
+  const int img = s / p.tiles_y;
+  const int chunks = (p.C + KC - 1) / KC;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < STAGES; ++i) {
+      mbar_init(w_full(i), 1);
+      mbar_init(w_empty(i), CONSUMER_WARPS);
+    }
+    for (int j = 0; j < 2; ++j) {
+      mbar_init(halo_full(j), 1);
+      mbar_init(halo_empty(j), CONSUMER_WARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int lane = threadIdx.x % 32;
+
+  if (threadIdx.x >= CONSUMERS) {
+    // ---------------------------------------------------- producer ----
+    if (lane != 0) return;
+    // chunk ch's activated halo goes to buffer ch % 2 once the products of
+    // chunk ch - 2 are done (released at tap IN_FLIGHT - 1 of chunk ch - 1)
+    auto load_halo = [&](int ch) {
+      const int j = ch & 1;
+      mbar_wait(halo_empty(j), ((ch >> 1) & 1) ^ 1);
+      if (SKIP & 4) {
+        mbar_arrive(halo_full(j));
+      } else {
+        mbar_expect_tx(halo_full(j), HALO_BYTES);
+        tma_load_5d(halo_smem + j * HALO_BYTES, &hmap, halo_full(j), 0, x0 - 1, y0 - 1,
+                    ch * KG, img);
+      }
+    };
+    load_halo(0);
+    for (int ch = 0; ch < chunks; ++ch) {
+      for (int t = 0; t < 9; ++t) {
+        const int step = 9 * ch + t, stage = step % STAGES;
+        mbar_wait(w_empty(stage), ((step / STAGES) & 1) ^ 1);
+        if (SKIP & 2) {
+          mbar_arrive(w_full(stage));
+        } else {
+          mbar_expect_tx(w_full(stage), L::W_STAGE);
+          tma_load_3d(w_smem + stage * L::W_STAGE, &wmap, w_full(stage), ch * KC, t, n0);
+        }
+        if (t == IN_FLIGHT - 1 && ch + 1 < chunks) load_halo(ch + 1);
+      }
+    }
+  } else {
+    // ----------------------------------------------------- consumers ----
+    const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+    // a warp's lanes are done with a buffer: one arrival for the warp
+    auto release = [&](uint32_t bar) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar);
+    };
+
+    float acc[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+
+    // step = 9 * chunk + tap walks the weight ring: stage step % STAGES
+#pragma unroll 1
+    for (int ch = 0; ch < chunks; ++ch) {
+      mbar_wait(halo_full(ch & 1), (ch >> 1) & 1);
+      // this warpgroup's tile rows start at halo row 8 * wg
+      const uint32_t a_chunk = halo_smem + (ch & 1) * HALO_BYTES + wg * WG_ROWS * QHC * 16;
+#pragma unroll
+      for (int t = 0; t < 9; ++t) {
+        const int step = 9 * ch + t, stage = step % STAGES;
+        mbar_wait(w_full(stage), (step / STAGES) & 1);
+        if (!(SKIP & 8)) {
+          const uint32_t a_tap = a_chunk + ((t / 3) * QHC + t % 3) * 16;
+          const uint32_t b_tap = w_smem + stage * L::W_STAGE;
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < KC / 16; ++kk)
+            wgmma_tile<BN>(acc, smem_desc(a_tap + 2 * kk * HALO_KG, HALO_KG, QHC * 16, 0),
+                           smem_desc(b_tap + 32 * kk, 16, 1024, 1));
+          wgmma_commit();
+          wgmma_wait<IN_FLIGHT>();  // the products of step - IN_FLIGHT are done
+        }
+        if (step >= IN_FLIGHT) release(w_empty((step - IN_FLIGHT) % STAGES));
+        // the previous chunk's products are all done: its halo buffer goes
+        // back to the producer
+        if (t == IN_FLIGHT - 1 && ch > 0) release(halo_empty((ch - 1) & 1));
+      }
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) asm volatile("" : "+f"(acc[i]) :: "memory");
+
+    // epilogue: + bias in f32, one rounding, staged in the weight ring (free
+    // once both warpgroups' products are done) and stored as 16-byte rows
+    named_sync(1, CONSUMERS);
+    __nv_bfloat16* cs = reinterpret_cast<__nv_bfloat16*>(smem);  // [QR * QC][OUT_PITCH]
+    const int warp = tid / 32;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int col = j * 8 + (lane % 4) * 2, n = n0 + col;
+      const float b0 = n < p.Cout ? p.bias[n] : 0.f;
+      const float b1 = n + 1 < p.Cout ? p.bias[n + 1] : 0.f;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int px = wg * 64 + warp * 16 + lane / 4 + 8 * half;
+        *reinterpret_cast<__nv_bfloat162*>(cs + px * L::OUT_PITCH + col) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * half] + b0, acc[4 * j + 2 * half + 1] + b1);
+      }
+    }
+    named_sync(1, CONSUMERS);
+    for (int e = threadIdx.x; e < QR * QC * (BN / 8); e += CONSUMERS) {
+      const int px = e / (BN / 8), v = e % (BN / 8);
+      const int yy = y0 + px / QC, xx = x0 + px % QC, n = n0 + v * 8;
+      if (yy < p.H && xx < p.W && n < p.Cout)
+        *reinterpret_cast<uint4*>(
+            p.out + ((static_cast<size_t>(img) * p.H + yy) * p.W + xx) * p.Cout + n) =
+            *reinterpret_cast<const uint4*>(cs + px * L::OUT_PITCH + v * 8);
+    }
+  }
+}
+
+// ----------------------------------------------------------------- f32 ----
+
+constexpr int TR = 8;                   // output rows of a block tile
+constexpr int TC = 16;                  // output columns of a block tile
+constexpr int HC = TC + 2;              // halo columns
+constexpr int HP = (TR + 2) * HC;       // halo pixels (180)
+constexpr int FBN = 64;                 // output channels of a block
+constexpr int FKC = 8;                  // input channels of one chunk
+constexpr int FT = 256;                 // threads
 
 struct Tile {
   int img, y0, x0, n0;
@@ -81,214 +486,6 @@ __device__ __forceinline__ Tile tile_of_block(int tiles_x, int tiles_y, int n_ti
   t.img = s / tiles_y;
   return t;
 }
-
-// ---------------------------------------------------------------- bf16 ----
-
-constexpr int BN = 128;                 // output channels of a block
-constexpr int KC = GN_CONV_KC;          // input channels of one chunk
-constexpr int SKIP = GN_CONV_PROBE_SKIP;
-constexpr int BT = 128;                 // threads: 2 x 2 warps of 64 pixels x 64 channels
-constexpr int KS = KC + 8;              // padded shared row: 80 bytes
-constexpr int STAGES = 3;               // weight slices in flight
-constexpr int A_BUF = HP * KS;          // one halo buffer (two: this chunk, the next)
-constexpr int B_BUF = BN * KS;          // one weight slice: one tap of one chunk
-constexpr int CS = BN + 8;              // padded row of the output staging tile
-constexpr size_t SMEM_BF16 =
-    static_cast<size_t>(2 * A_BUF + STAGES * B_BUF) * sizeof(__nv_bfloat16);
-static_assert(TR * TC * CS <= 2 * A_BUF + STAGES * B_BUF, "output tile must fit");
-
-using mage::cp_async16;
-using mage::cp_async_commit;
-using mage::cp_async_wait;
-using mage::ldmatrix_x4;
-using mage::mma_bf16;
-
-struct Bf16Args {
-  const __nv_bfloat16* x;
-  const float* a;
-  const float* b;
-  const __nv_bfloat16* w;
-  const float* bias;
-  __nv_bfloat16* out;
-  int H, W, C, Cout;
-};
-
-// The halo vectors (8 channels of one halo pixel) a thread owns:
-// e = tid, tid + BT, ... below HP * KC / 8.
-__device__ __forceinline__ bool halo_vector(const Bf16Args& p, const Tile& tile, int e, int c0,
-                                            int& smem_off, size_t& gmem_off) {
-  const int px = e / (KC / 8), part = e % (KC / 8);
-  const int yy = tile.y0 - 1 + px / HC, xx = tile.x0 - 1 + px % HC;
-  const int c = c0 + part * 8;
-  smem_off = px * KS + part * 8;
-  gmem_off = ((static_cast<size_t>(tile.img) * p.H + yy) * p.W + xx) * p.C + c;
-  return yy >= 0 && yy < p.H && xx >= 0 && xx < p.W && c < p.C;
-}
-
-// raw x of chunk c0 into a halo buffer (in-image vectors only)
-__device__ __forceinline__ void load_halo(const Bf16Args& p, const Tile& tile, int c0,
-                                          __nv_bfloat16* As) {
-  for (int e = threadIdx.x; e < HP * (KC / 8); e += BT) {
-    int so;
-    size_t go;
-    if (halo_vector(p, tile, e, c0, so, go)) cp_async16(As + so, p.x + go, 16);
-  }
-}
-
-// in place, on the vectors this thread loaded: silu(x * a + b) rounded to
-// bf16, and 0 on the ring and past C (the padding comes after the activation)
-__device__ __forceinline__ void activate_halo(const Bf16Args& p, const Tile& tile, int c0,
-                                              __nv_bfloat16* As) {
-  const size_t row_a = static_cast<size_t>(tile.img) * p.C;
-  for (int e = threadIdx.x; e < HP * (KC / 8); e += BT) {
-    int so;
-    size_t go;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (halo_vector(p, tile, e, c0, so, go)) {
-      const int c = c0 + (e % (KC / 8)) * 8;
-      const float4 a0 = *reinterpret_cast<const float4*>(p.a + row_a + c);
-      const float4 a1 = *reinterpret_cast<const float4*>(p.a + row_a + c + 4);
-      const float4 b0 = *reinterpret_cast<const float4*>(p.b + row_a + c);
-      const float4 b1 = *reinterpret_cast<const float4*>(p.b + row_a + c + 4);
-      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-      const uint4 raw = *reinterpret_cast<const uint4*>(As + so);
-      const __nv_bfloat162* xv = reinterpret_cast<const __nv_bfloat162*>(&raw);
-      uint32_t hv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float2 xf = __bfloat1622float2(xv[i]);
-        const __nv_bfloat162 h2 =
-            __floats2bfloat162_rn(affine_silu(xf.x, av[2 * i], bv[2 * i]),
-                                  affine_silu(xf.y, av[2 * i + 1], bv[2 * i + 1]));
-        hv[i] = *reinterpret_cast<const uint32_t*>(&h2);
-      }
-      v = make_uint4(hv[0], hv[1], hv[2], hv[3]);
-    }
-    *reinterpret_cast<uint4*>(As + so) = v;
-  }
-}
-
-// the weights of one step (tap t of chunk c0) for the block's BN channels
-__device__ __forceinline__ void load_weights(const Bf16Args& p, const Tile& tile, int c0, int t,
-                                             __nv_bfloat16* Bs) {
-  for (int e = threadIdx.x; e < BN * (KC / 8); e += BT) {
-    const int n = e / (KC / 8), part = e % (KC / 8);
-    const int c = c0 + part * 8;
-    const bool in = tile.n0 + n < p.Cout && c < p.C;
-    const __nv_bfloat16* src =
-        in ? p.w + (static_cast<size_t>(tile.n0 + n) * 9 + t) * p.C + c : p.w;
-    cp_async16(Bs + n * KS + part * 8, src, in ? 16 : 0);
-  }
-}
-
-__global__ void __launch_bounds__(BT, 3)
-gn_conv_bf16(Bf16Args p, int tiles_x, int tiles_y, int n_tiles) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [2][HP][KS]
-  __nv_bfloat16* Bs = As + 2 * A_BUF;                               // [STAGES][BN][KS]
-
-  const Tile tile = tile_of_block(tiles_x, tiles_y, n_tiles, BN);
-  const int lane = threadIdx.x % 32;
-  const int warp_m = (threadIdx.x / 32) % 2;  // tile rows 4*warp_m .. +3
-  const int warp_n = (threadIdx.x / 32) / 2;  // channels warp_n*64 .. +63 of the block
-
-  float acc[4][8][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-  // Steps s = 0 .. 9 * chunks - 1 walk (chunk, tap). Copy group s holds the
-  // weights of step s and, at a chunk's first tap, the chunk's raw halo; it
-  // is issued two steps ahead, so loads overlap the products of earlier steps.
-  const int steps = 9 * ((p.C + KC - 1) / KC);
-  auto issue = [&](int s) {
-    if (s < steps) {
-      const int c0 = (s / 9) * KC, t = s % 9;
-      if (t == 0 && !(SKIP & 4)) load_halo(p, tile, c0, As + ((s / 9) % 2) * A_BUF);
-      if (!(SKIP & 2)) load_weights(p, tile, c0, t, Bs + (s % STAGES) * B_BUF);
-    }
-    cp_async_commit();  // empty groups past the end keep the count uniform
-  };
-  issue(0);
-  issue(1);
-
-#pragma unroll 1
-  for (int s = 0; s < steps; ++s) {
-    const int chunk = s / 9, t = s % 9;
-    const __nv_bfloat16* A = As + (chunk % 2) * A_BUF;
-    const __nv_bfloat16* B = Bs + (s % STAGES) * B_BUF;
-    cp_async_wait<1>();  // group s has landed (s + 1 may be in flight)
-    if (t == 0 && !(SKIP & 1)) activate_halo(p, tile, chunk * KC, As + (chunk % 2) * A_BUF);
-    __syncthreads();     // everyone's copies and activations are visible, and
-                         // everyone is done with step s - 1's weight stage
-    issue(s + 2);
-
-    const int dy = t / 3, dx = t % 3;
-#pragma unroll
-    for (int ks = 0; ks < KC; ks += 16) {
-      // A (16 pixels of one tile row x 16 channels): lanes 0-15 give the
-      // rows of k 0-7, lanes 16-31 the rows of k 8-15
-      uint32_t af[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = warp_m * 4 + i;
-        ldmatrix_x4(af[i], A + ((r + dy) * HC + lane % 16 + dx) * KS + ks + (lane / 16) * 8);
-      }
-#pragma unroll
-      for (int jp = 0; jp < 4; ++jp) {
-        // B for two n8 tiles: matrices (n 0-7, k 0-7), (n 0-7, k 8-15),
-        // (n 8-15, k 0-7), (n 8-15, k 8-15)
-        uint32_t bf[4];
-        const int n = warp_n * 64 + jp * 16 + (lane / 16) * 8 + lane % 8;
-        ldmatrix_x4(bf, B + n * KS + ks + ((lane / 8) % 2) * 8);
-#pragma unroll
-        for (int i = 0; i < 4 && !(SKIP & 8); ++i) {
-          mma_bf16(acc[i][2 * jp], af[i], bf[0], bf[1]);
-          mma_bf16(acc[i][2 * jp + 1], af[i], bf[2], bf[3]);
-        }
-      }
-    }
-  }
-  cp_async_wait<0>();
-  __syncthreads();  // the shared buffers become the output staging tile
-
-  // epilogue: + bias in f32, one rounding, staged in shared memory so that
-  // each pixel's channels leave as 16-byte stores
-  __nv_bfloat16* Cs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [TR*TC][CS]
-  const int g = lane / 4, tig = lane % 4;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int px = (warp_m * 4 + i) * TC + g + half * 8;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int nl = warp_n * 64 + j * 8 + tig * 2;
-        const int n = min(tile.n0 + nl, p.Cout - 2);  // columns past Cout are not stored
-        *reinterpret_cast<__nv_bfloat162*>(Cs + px * CS + nl) = __floats2bfloat162_rn(
-            acc[i][j][half * 2] + p.bias[n], acc[i][j][half * 2 + 1] + p.bias[n + 1]);
-      }
-    }
-  __syncthreads();
-  for (int e = threadIdx.x; e < TR * TC * (BN / 8); e += BT) {
-    const int px = e / (BN / 8), v = e % (BN / 8);
-    const int yy = tile.y0 + px / TC, xx = tile.x0 + px % TC, n = tile.n0 + v * 8;
-    if (yy < p.H && xx < p.W && n < p.Cout)
-      *reinterpret_cast<uint4*>(
-          p.out + ((static_cast<size_t>(tile.img) * p.H + yy) * p.W + xx) * p.Cout + n) =
-          *reinterpret_cast<const uint4*>(Cs + px * CS + v * 8);
-  }
-}
-
-// ----------------------------------------------------------------- f32 ----
-
-constexpr int FBN = 64;                 // output channels of a block
-constexpr int FKC = 8;                  // input channels of one chunk
-constexpr int FT = 256;                 // threads
 
 __global__ void __launch_bounds__(FT)
 gn_conv_f32(const float* __restrict__ x, const float* __restrict__ a,
@@ -367,36 +564,106 @@ gn_conv_f32(const float* __restrict__ x, const float* __restrict__ a,
   }
 }
 
+// ------------------------------------------------------------------ host ----
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault,
+                                         &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault,
+                                              &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(f);
+  }
+  return fn;
+}
+
+template <int BN>
+int launch_bf16(const void* x, void* h, const void* w, const Bf16Args& args, int batch,
+                cudaStream_t stream) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const int hw = args.H * args.W, groups = args.C / 8;
+  if (!(SKIP & 1)) {
+    const unsigned blocks =
+        static_cast<unsigned>(batch) * groups * ((hw + ACT_THREADS - 1) / ACT_THREADS);
+    gn_act_bf16<<<blocks, ACT_THREADS, 0, stream>>>(
+        static_cast<const __nv_bfloat16*>(x), args.a, args.b, static_cast<__nv_bfloat16*>(h),
+        hw, args.C);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const cuuint64_t C = args.C, W = args.W, H = args.H, G = groups;
+  CUtensorMap hmap, wmap;
+  const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
+  // h (B, C / 8, H, W, 8) as (8, W, H, C / 8, B); box 8 channels x 10 columns
+  // x 18 rows x 8 groups x 1 image: the halo lands as [group][row][column][8]
+  const cuuint64_t hdim[5] = {8, W, H, G, static_cast<cuuint64_t>(batch)};
+  const cuuint64_t hstride[4] = {16, W * 16, H * W * 16, G * H * W * 16};
+  const cuuint32_t hbox[5] = {8, QHC, QR + 2, KG, 1};
+  CUresult r = encode(&hmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, h, hdim, hstride, hbox, ones,
+                      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (r != CUDA_SUCCESS) return static_cast<int>(cudaErrorInvalidValue);
+  // w (Cout, 9 * C) as (C, 9, Cout); box 64 channels x 1 tap x BN rows, swizzled
+  const cuuint64_t wdim[3] = {C, 9, static_cast<cuuint64_t>(args.Cout)};
+  const cuuint64_t wstride[2] = {C * 2, 9 * C * 2};
+  const cuuint32_t wbox[3] = {KC, 1, BN};
+  r = encode(&wmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(w), wdim, wstride,
+             wbox, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (r != CUDA_SUCCESS) return static_cast<int>(cudaErrorInvalidValue);
+
+  constexpr int smem = Layout<BN>::SMEM;
+  cudaError_t err =
+      cudaFuncSetAttribute(gn_conv_bf16<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const unsigned blocks =
+      static_cast<unsigned>(batch) * args.tiles_y * args.tiles_x * args.n_tiles;
+  gn_conv_bf16<BN><<<blocks, THREADS, smem, stream>>>(hmap, wmap, args);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // x (batch, H, W, C) and w (Cout, 9 * C) [w[o][(dy*3+dx)*C + c]] in one dtype;
 // a, b (batch, C), bias (Cout,) and the f32 output or the bf16 out (batch, H,
-// W, Cout). All contiguous and 16-byte aligned; C and Cout multiples of 16.
+// W, Cout); for bf16, h is scratch of batch * H * W * C elements for the
+// activated input (unused for f32). All contiguous and 16-byte aligned; C and
+// Cout multiples of 16.
 extern "C" int mage_gn_silu_conv3x3(const void* x, const void* a, const void* b,
-                                    const void* w, const void* bias, void* out, int batch,
-                                    int H, int W, int C, int Cout, int dtype, void* stream) {
+                                    const void* w, const void* bias, void* out, void* h,
+                                    int batch, int H, int W, int C, int Cout, int dtype,
+                                    void* stream) {
   if (batch <= 0 || H <= 0 || W <= 0 || Cout <= 0) return static_cast<int>(cudaGetLastError());
   auto s = static_cast<cudaStream_t>(stream);
-  const int tiles_x = (W + TC - 1) / TC, tiles_y = (H + TR - 1) / TR;
   auto fa = static_cast<const float*>(a);
   auto fb = static_cast<const float*>(b);
   auto fbias = static_cast<const float*>(bias);
   if (dtype == mage::kBFloat16) {
-    const int n_tiles = (Cout + BN - 1) / BN;
-    cudaError_t err = cudaFuncSetAttribute(
-        gn_conv_bf16, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(SMEM_BF16));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const unsigned blocks = static_cast<unsigned>(batch) * tiles_y * tiles_x * n_tiles;
-    const Bf16Args args{static_cast<const __nv_bfloat16*>(x), fa, fb,
-                        static_cast<const __nv_bfloat16*>(w), fbias,
-                        static_cast<__nv_bfloat16*>(out), H, W, C, Cout};
-    gn_conv_bf16<<<blocks, BT, SMEM_BF16, s>>>(args, tiles_x, tiles_y, n_tiles);
-  } else {
-    const int n_tiles = (Cout + FBN - 1) / FBN;
-    const unsigned blocks = static_cast<unsigned>(batch) * tiles_y * tiles_x * n_tiles;
-    gn_conv_f32<<<blocks, FT, 0, s>>>(
-        static_cast<const float*>(x), fa, fb, static_cast<const float*>(w), fbias,
-        static_cast<float*>(out), H, W, C, Cout, tiles_x, tiles_y, n_tiles);
+    const int bn = Cout >= 256 ? 256 : 128;
+    const Bf16Args args{fa, fb, fbias, static_cast<__nv_bfloat16*>(out), H, W, C, Cout,
+                        (W + QC - 1) / QC, (H + QR - 1) / QR, (Cout + bn - 1) / bn};
+    return bn == 256 ? launch_bf16<256>(x, h, w, args, batch, s)
+                     : launch_bf16<128>(x, h, w, args, batch, s);
   }
+  const int tiles_x = (W + TC - 1) / TC, tiles_y = (H + TR - 1) / TR;
+  const int n_tiles = (Cout + FBN - 1) / FBN;
+  const unsigned blocks = static_cast<unsigned>(batch) * tiles_y * tiles_x * n_tiles;
+  gn_conv_f32<<<blocks, FT, 0, s>>>(
+      static_cast<const float*>(x), fa, fb, static_cast<const float*>(w), fbias,
+      static_cast<float*>(out), H, W, C, Cout, tiles_x, tiles_y, n_tiles);
   return static_cast<int>(cudaGetLastError());
 }

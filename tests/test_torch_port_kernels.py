@@ -83,11 +83,18 @@ def test_kernels_reject_what_they_do_not_take(gen):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("b,h,w,c,cout", [(3, 1, 7, 16, 48), (1, 5, 130, 32, 16),
-                                          (2, 16, 16, 512, 512)])
+                                          (2, 16, 16, 512, 512), (2, 17, 17, 256, 128),
+                                          (1, 17, 17, 512, 512), (3, 9, 13, 48, 32),
+                                          (1, 33, 8, 128, 256)])
 def test_gn_conv_kernel_matches_plain(gen, dtype, b, h, w, c, cout, monkeypatch):
-    """16 GroupNorm groups (C=16 has no 32). bf16: one rounding step of the
-    output, plus a 1e-3 floor for the rare activation that rounds to the
-    neighbouring bf16 value (the kernel and the plain version sum in other
+    """16 GroupNorm groups (C=16 has no 32). Ragged against the bf16 tile
+    (16 x 8 pixels, 128 or 256 channels, 64-channel chunks): H=W=17, two
+    channel tiles at Cout=512, a 48-channel box that TMA fills past C with
+    zeros, B=1. The op runs two kernels: the statistics are held to
+    ``gn_affine_rows`` (1e-5 relative), and the output to the plain conv on
+    the rows the statistics kernel gave it (rows that differ by ~1e-7 can
+    round a bf16 activation the other way). bf16: one rounding step of the
+    output, plus a 1e-3 floor (the kernel and the plain version sum in other
     orders)."""
     monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
     x = (torch.randn(b, h, w, c, generator=gen, device="cuda") * 2 + 0.5).to(dtype)
@@ -95,10 +102,14 @@ def test_gn_conv_kernel_matches_plain(gen, dtype, b, h, w, c, cout, monkeypatch)
     beta = torch.randn(c, generator=gen, device="cuda") * 0.2
     weight = torch.randn(cout, c, 3, 3, generator=gen, device="cuda") / (9 * c) ** 0.5
     bias = torch.randn(cout, generator=gen, device="cuda") * 0.1
-    before = gc.KERNEL.launches
+    before = gc.KERNEL.launches, gc.KERNEL_STATS.launches
     got = gc.gn_silu_conv3x3(x, gamma, beta, weight, bias, groups=16)
-    assert gc.KERNEL.launches == before + 1
-    want = gc.gn_silu_conv3x3(x, gamma, beta, weight, bias, groups=16, impl="torch")
+    assert (gc.KERNEL.launches, gc.KERNEL_STATS.launches) == (before[0] + 1, before[1] + 1)
+    a, shift = gc.gn_stats(x, gamma, beta, groups=16)
+    for got_row, want_row in zip((a, shift), gc.gn_affine_rows(x, gamma, beta, 16, 1e-6)):
+        torch.testing.assert_close(got_row, want_row, rtol=1e-5,
+                                   atol=1e-5 * float(want_row.abs().max()))
+    want = gc.silu_conv3x3_rows(x, a, shift, weight, bias)
     assert got.shape == (b, h, w, cout) and got.dtype == dtype
     tol = TOL[dtype] if dtype == torch.float32 else dict(rtol=2**-7, atol=1e-3)
     torch.testing.assert_close(got.float(), want.float(), **tol)
@@ -115,6 +126,75 @@ def test_gn_conv_rejects_what_it_does_not_take(gen):
         gc.gn_silu_conv3x3(x.transpose(1, 2), ones, zeros, weight, zeros)
     with pytest.raises(ValueError):  # a parameter on the CPU
         gc.gn_silu_conv3x3(x, ones, zeros, weight.cpu(), zeros)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,h,w,c,groups", [(3, 1, 7, 16, 16), (2, 17, 17, 48, 16),
+                                             (1, 5, 130, 512, 32), (2, 3, 5, 4096, 32),
+                                             (96, 16, 16, 512, 32)])
+def test_gn_stats_kernel_matches_plain(gen, dtype, b, h, w, c, groups):
+    """Ragged against the kernel's 256-thread rows of 16-byte vectors (C=4096
+    takes two and four channel slices), and the decoder's 16-px class. The
+    sums run in another order than the plain version's: a and b within 1e-5
+    relative. Two runs give the same rows bit for bit (no atomics)."""
+    x = (torch.randn(b, h, w, c, generator=gen, device="cuda") * 2 + 0.5).to(dtype)
+    gamma = torch.randn(c, generator=gen, device="cuda") * 0.5 + 1
+    beta = torch.randn(c, generator=gen, device="cuda") * 0.2
+    before = gc.KERNEL_STATS.launches
+    a, shift = gc.gn_stats(x, gamma, beta, groups=groups)
+    assert gc.KERNEL_STATS.launches == before + 1
+    want_a, want_b = gc.gn_stats(x, gamma, beta, groups=groups, impl="torch")
+    assert a.shape == shift.shape == (b, c) and a.dtype == shift.dtype == torch.float32
+    torch.testing.assert_close(a, want_a, rtol=1e-5, atol=1e-5 * float(want_a.abs().max()))
+    torch.testing.assert_close(shift, want_b, rtol=1e-5, atol=1e-5 * float(want_b.abs().max()))
+    again = gc.gn_stats(x, gamma, beta, groups=groups)
+    assert torch.equal(a, again[0]) and torch.equal(shift, again[1])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_gn_stats_kernel_clamps_a_cancelling_variance(gen, dtype):
+    """|mean| >> std: around 300, E[x^2] - mean^2 cancels, and in f32 the
+    difference is known only to a few ulps of E[x^2] (about 0.005 each),
+    of either sign. Even groups are constant, so their variance is 0 and the
+    clamp at 0 keeps a = gamma / sqrt(eps) finite (a negative variance past
+    -eps would give NaN); odd groups spread by steps of 2 (bf16's step at
+    300). The kernel and the plain version are both held to the exact f64
+    statistics: the variance that a implies within 64 ulps of E[x^2], the
+    mean that b implies within 1e-6 of it."""
+    b, h, w, c, groups = 2, 17, 17, 64, 16
+    gs = c // groups
+    cpu = torch.Generator().manual_seed(1)
+    step = torch.randint(-2, 3, (b, h, w, c), generator=cpu).float() * 2
+    odd = ((torch.arange(c) // gs) % 2 == 1).float()
+    x = (300.0 + step * odd).to(dtype).cuda()
+    gamma = torch.rand(c, generator=gen, device="cuda") * 0.5 + 0.75  # a far from 0
+    beta = torch.randn(c, generator=gen, device="cuda") * 0.2
+    eps = 1e-6
+    xd = x.double().reshape(b, h * w, groups, gs)
+    mean = xd.mean(dim=(1, 3)).repeat_interleave(gs, dim=1)
+    ex2 = (xd * xd).mean(dim=(1, 3)).repeat_interleave(gs, dim=1)
+    var = (ex2 - mean * mean).clamp(min=0)
+    for impl in ("auto", "torch"):
+        a, shift = gc.gn_stats(x, gamma, beta, groups=groups, eps=eps, impl=impl)
+        assert bool(torch.isfinite(a).all() and torch.isfinite(shift).all()), impl
+        a64 = a.double()
+        implied_var = (gamma.double()[None] / a64) ** 2 - eps
+        assert bool(((implied_var - var).abs() <= 64 * 2.0 ** -24 * ex2).all()), impl
+        implied_mean = (beta.double()[None] - shift.double()) / a64
+        torch.testing.assert_close(implied_mean, mean, rtol=1e-6, atol=0)
+
+
+def test_gn_stats_rejects_what_it_does_not_take(gen):
+    x = torch.randn(2, 4, 4, 32, generator=gen, device="cuda")
+    ones, zeros = torch.ones(32, device="cuda"), torch.zeros(32, device="cuda")
+    with pytest.raises(ValueError):  # C % 16 != 0
+        gc.gn_stats(x[..., :24].contiguous(), ones[:24], zeros[:24], groups=8)
+    with pytest.raises(ValueError):  # groups do not divide C
+        gc.gn_stats(x, ones, zeros, groups=5)
+    with pytest.raises(ValueError):  # gamma on the CPU
+        gc.gn_stats(x, ones.cpu(), zeros, groups=8)
+    with pytest.raises(ValueError):  # not contiguous
+        gc.gn_stats(x.transpose(1, 2), ones, zeros, groups=8)
 
 
 def _block_params(gen, d, dtype):

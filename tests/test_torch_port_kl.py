@@ -64,6 +64,106 @@ def test_gn_affine_rows_match_jax():
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5, atol=1e-5)
 
 
+def _large_mean_inputs(seed=2):
+    """Integers around 100, so every partial sum is exact in f32 and the
+    cancelling E[x^2] - mean^2 (about 1e4 - 1e4) comes out the same in any
+    summation order; the even groups are constant (variance 0, a = gamma /
+    sqrt(eps)), the odd ones spread by up to 3."""
+    rng = np.random.RandomState(seed)
+    b, h, w, c, groups = 2, 4, 4, 64, 32
+    odd = (np.arange(c) // (c // groups)) % 2 == 1
+    x = 100.0 + rng.randint(-3, 4, size=(b, h, w, c)) * odd
+    return (x.astype(np.float32), (rng.randn(c) * 0.5 + 1).astype(np.float32),
+            (rng.randn(c) * 0.2).astype(np.float32))
+
+
+@pytest.mark.parametrize("case", ["bf16", "large_mean"])
+def test_gn_affine_rows_match_jax_on_bf16_and_large_mean(case):
+    """``gn_affine_rows``, the statistics kernel's oracle, against JAX's. bf16:
+    both read the same bf16 values and sum in f32. large_mean: |mean| >> std,
+    with sums that are exact, so the two agree to the last rounding and the
+    constant groups' variance is exactly 0."""
+    if case == "bf16":
+        x, gamma, beta, _, _ = _gn_conv_inputs(3, 5, 7, 64, 16, seed=2)
+        xt, xj = torch.from_numpy(x).bfloat16(), jnp.asarray(x).astype(jnp.bfloat16)
+        np.testing.assert_array_equal(xt.float().numpy(), np.asarray(xj, np.float32))
+    else:
+        x, gamma, beta = _large_mean_inputs()
+        xt, xj = torch.from_numpy(x), jnp.asarray(x)
+    want = jgc.gn_affine_rows(xj, jnp.asarray(gamma), jnp.asarray(beta), 32, 1e-6)
+    got = tgc.gn_affine_rows(xt, torch.from_numpy(gamma), torch.from_numpy(beta), 32, 1e-6)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5,
+                                   atol=1e-7 * float(np.abs(np.asarray(w)).max()))
+    if case == "large_mean":
+        a = got[0].numpy()
+        constant = (np.arange(64) // 2) % 2 == 0
+        np.testing.assert_allclose(a[:, constant], np.broadcast_to(gamma[constant] * 1e3,
+                                                                   a[:, constant].shape),
+                                   rtol=1e-6)
+        xd = x.astype(np.float64).reshape(2, 16, 32, 2)
+        ex2, var = (xd ** 2).mean(axis=(1, 3)), xd.var(axis=(1, 3))
+        assert (ex2[:, 1::2] > 1000 * var[:, 1::2]).all()  # E[x^2] - mean^2 cancels
+
+
+def test_gn_stats_on_a_cpu_tensor_is_the_plain_version():
+    x, gamma, beta, _, _ = _gn_conv_inputs(2, 3, 5, 64, 16, seed=3)
+    args = (torch.from_numpy(x), torch.from_numpy(gamma), torch.from_numpy(beta))
+    want = tgc.gn_affine_rows(*args, 16, 1e-5)
+    for impl in ("auto", "torch"):
+        got = tgc.gn_stats(*args, groups=16, eps=1e-5, impl=impl)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=0, atol=0)
+    with pytest.raises(ValueError):
+        tgc.gn_stats(*args, impl="cuda")
+
+
+def test_packed_weight_is_made_once_per_parameter():
+    """The kernel's (Cout, 9 * C) weight and f32 bias are cached on the
+    weight and made again when the weight or bias is written in place,
+    replaced or cast."""
+    conv = torch.nn.Conv2d(32, 48, 3, padding=1)
+    w, b = conv.weight, conv.bias
+    wk, b32 = tgc._packed(w, b, torch.float32)
+    again = tgc._packed(w, b, torch.float32)
+    assert again[0] is wk and again[1] is b32
+    assert wk.shape == (48, 9 * 32) and wk.is_contiguous()
+    with torch.no_grad():
+        w.mul_(2)
+    wk2, _ = tgc._packed(w, b, torch.float32)
+    assert wk2 is not wk
+    torch.testing.assert_close(wk2, 2 * wk, rtol=0, atol=0)
+    bias_before = b.detach().clone()
+    with torch.no_grad():
+        b.add_(1)
+    torch.testing.assert_close(tgc._packed(w, b, torch.float32)[1], bias_before + 1, rtol=0,
+                               atol=0)
+    half, _ = tgc._packed(w, b, torch.bfloat16)
+    assert half.dtype == torch.bfloat16
+    torch.testing.assert_close(half, wk2.bfloat16(), rtol=0, atol=0)
+    conv.weight.data = conv.weight.data.clone()  # replaced: a new tensor under the parameter
+    assert tgc._packed(w, b, torch.bfloat16)[0] is not half
+
+
+def test_packed_weight_layout_rebuilds_the_conv():
+    """The packed layout the kernel's tensor map reads, w[o][(dy * 3 + dx) *
+    C + c], summed over the nine shifted windows of the zero-padded input in
+    plain torch, is ``F.conv2d`` with the (Cout, C, 3, 3) weight."""
+    rng = np.random.RandomState(4)
+    x = torch.from_numpy(rng.randn(2, 5, 7, 16).astype(np.float32))
+    weight = torch.from_numpy(rng.randn(32, 16, 3, 3).astype(np.float32))
+    bias = torch.from_numpy(rng.randn(32).astype(np.float32))
+    wk, b32 = tgc._packed(weight, bias, torch.float32)
+    xp = torch.nn.functional.pad(x, (0, 0, 1, 1, 1, 1))
+    got = b32.expand(2, 5, 7, 32).clone()
+    for t in range(9):
+        dy, dx = divmod(t, 3)
+        got += xp[:, dy:dy + 5, dx:dx + 7, :] @ wk[:, t * 16:(t + 1) * 16].T
+    want = torch.nn.functional.conv2d(x.permute(0, 3, 1, 2), weight, bias, padding=1)
+    torch.testing.assert_close(got, want.permute(0, 2, 3, 1), rtol=1e-5, atol=1e-5)
+
+
 @pytest.fixture(scope="module")
 def kl_pair():
     """A JAX AutoencoderKL with its variables and the port's, strict-loaded."""
