@@ -170,6 +170,14 @@ def check_axial(torch, F, ax, gen) -> dict:
     q4, k4, v4 = (t.view(AX_G, AX_S, HEADS, hd).transpose(1, 2) for t in (q, k, v))
     b, by = bound_ms(4 * AX_G * AX_S * AX_D * q.element_size(),
                      4.0 * AX_G * AX_S * AX_S * AX_D)
+    qn, kn, vn = (torch.randn(NAIVE_G, AX_S, AX_D, generator=gen, device="cuda").to(q.dtype)
+                  for _ in range(3))
+    naive_bound, _ = bound_ms(4 * qn.numel() * qn.element_size(),
+                              4.0 * NAIVE_G * AX_S * AX_S * AX_D)
+    log(f"axial at the naive sampler's shape {tuple(qn.shape)} per call (bf16): kernel "
+        f"{time_ms(lambda: ax.axial_slot_attention(qn, kn, vn, HEADS))} ms, bound "
+        f"{naive_bound} ms")
+    del qn, kn, vn
     return {
         "name": "axial_slot_attention", "route": "cuda",
         "source": "mage_tpu_torch/csrc/axial_attention.cu",
@@ -390,8 +398,8 @@ def check_axial_block(torch, ax, tl, gen) -> dict:
     of the largest |output| (the share of values past one step is printed).
     Timed in bf16 beside the plain version and the flat route it replaces
     (the port's ``AxialAttentionBlock``: LayerNorms, cuBLAS projections and
-    MLP, the axial attention kernel, residual adds); the kernel alone is also
-    timed at the naive sampler's shape."""
+    MLP, the axial attention kernel, residual adds); the kernel and the flat
+    block are also timed at the naive sampler's shape."""
     out = {}
     for dtype in (torch.float32, torch.bfloat16):
         block = block_weights(torch, tl, gen, dtype)
@@ -444,10 +452,11 @@ def check_axial_block(torch, ax, tl, gen) -> dict:
         }
         xn = torch.randn(NAIVE_G, AX_S, AX_D, generator=gen, device="cuda").to(x.dtype)
         naive_ms = time_ms(lambda: ax.axial_block_fused(xn, params, HEADS), iters=5)
+        naive_flat_ms = time_ms(lambda: block(xn.view(1, 1, NAIVE_G, AX_S, AX_D)), iters=5)
         naive_bound, _ = bound_ms((2 * xn.numel() + n_weights) * 2, flops * NAIVE_G / AX_G,
                                   BF16_TC_FLOP_PER_S)
     log(f"axial block at the naive sampler's shape {tuple(xn.shape)} per launch (bf16): "
-        f"kernel {naive_ms} ms, bound {naive_bound} ms")
+        f"kernel {naive_ms} ms, flat block {naive_flat_ms} ms, bound {naive_bound} ms")
     return row
 
 

@@ -114,10 +114,13 @@ def _block_plain(x: torch.Tensor, params, n_head: int, eps: float) -> torch.Tens
     return (seq.float() + mm(act, wp, bp).float()).to(dt)
 
 
-def _block_cuda(x: torch.Tensor, params, n_head: int, eps: float) -> torch.Tensor:
+# parameter sets that passed _check_block, by their tensors' addresses,
+# shapes, strides, dtype and device: a block's 64 calls a generate check once
+_CHECKED_BLOCKS: set = set()
+
+
+def _check_block(x: torch.Tensor, params, n_head: int) -> None:
     _build.check_cuda("axial_block_fused", x, *params)
-    if x.dim() != 3:
-        raise ValueError(f"axial_block_fused takes x (G, S, D), got {tuple(x.shape)}")
     g, s, d = x.shape
     if d % 16 or d > BLOCK_MAX_D or d % n_head:
         raise ValueError(f"D={d}: the kernel takes D a multiple of 16 up to "
@@ -135,6 +138,24 @@ def _block_cuda(x: torch.Tensor, params, n_head: int, eps: float) -> torch.Tenso
         raise ValueError(f"block parameter shapes {got}, expected {want}")
     if any(t.data_ptr() % 16 for t in (x, *params)):
         raise ValueError("the kernel takes 16-byte aligned tensors")
+
+
+def _block_cuda(x: torch.Tensor, params, n_head: int, eps: float) -> torch.Tensor:
+    if x.dim() != 3:
+        raise ValueError(f"axial_block_fused takes x (G, S, D), got {tuple(x.shape)}")
+    key = (x.dtype, x.device, x.shape[1:], n_head,
+           tuple((p.data_ptr(), p.shape, p.stride(), p.dtype, p.device) for p in params))
+    if key in _CHECKED_BLOCKS:
+        _build.check_cuda("axial_block_fused", x)
+        if x.data_ptr() % 16:
+            raise ValueError("the kernel takes 16-byte aligned tensors")
+    else:
+        _check_block(x, params, n_head)
+        if len(_CHECKED_BLOCKS) > 1024:
+            _CHECKED_BLOCKS.clear()
+        _CHECKED_BLOCKS.add(key)
+    g, s, d = x.shape
+    hd = d // n_head
     out = torch.empty_like(x)
     KERNEL_BLOCK(x.data_ptr(), *(p.data_ptr() for p in params), out.data_ptr(),
                  g, s, d, n_head, _build.dtype_code(x), 1.0 / hd ** 0.5, eps,

@@ -31,9 +31,10 @@ LAYERS = dict(text_layers=2, ma_layers=1, dec_layers=3)
 
 def _weights(rng, d, n_head):
     """JAX-layout block parameters ((in, out) weights, (1, F) rows) at the
-    TPU kernel's init scale, LayerNorm near unit."""
+    TPU kernel's init scale at D=64, narrowed as 1 / sqrt(fan-in) past it so
+    wider blocks keep D=64's magnitudes, LayerNorm near unit."""
     def mat(i, o):
-        return (rng.randn(i, o) * 0.02 * 8).astype(np.float32)
+        return (rng.randn(i, o) * 0.02 * 8 * min(1.0, (64 / i) ** 0.5)).astype(np.float32)
 
     def row(n, base=0.0, scale=0.1):
         return (base + rng.randn(1, n) * scale).astype(np.float32)
@@ -71,6 +72,32 @@ def test_op_matches_jax_block_kernel(dtype, g, s, n_head, tile_g):
         np.testing.assert_allclose(got.numpy(), want, rtol=F32_TOL, atol=F32_TOL)
     else:
         np.testing.assert_allclose(got.float().numpy(), want, rtol=BF16_STEP, atol=BF16_STEP)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("g,s,d,n_head,tile_g", [(3, 32, 64, 2, 2), (5, 8, 128, 2, 4)])
+def test_op_matches_jax_block_kernel_at_the_kernel_limits(dtype, g, s, d, n_head, tile_g):
+    """S=32 (two groups a 64-row tile of the card's kernel) and hd=64 (D=128,
+    2 heads). f32 within 1e-5. bf16 within one step of each value plus one
+    step of the largest |output|: at these sizes an intermediate (seq, whose
+    residual reaches the output) that rounds to its bf16 neighbour moves an
+    output by a step at seq's magnitude, as the card's checks allow."""
+    rng = np.random.RandomState(g * 1000 + s + d)
+    x = rng.randn(g, s, d).astype(np.float32)
+    params = _weights(rng, d, n_head)
+    jdt = jnp.dtype(dtype)
+    want = _block_pallas(jnp.asarray(x, jdt), tuple(jnp.asarray(p, jdt) for p in params),
+                         n_head, eps=1e-5, tile_g=tile_g, interpret=True)
+    tdt = getattr(torch, dtype)
+    got = ax.axial_block_fused(torch.from_numpy(x).to(tdt),
+                               tuple(p.to(tdt) for p in _port_params(params)), n_head)
+    assert got.dtype == tdt and got.shape == (g, s, d)
+    want = np.asarray(want.astype(jnp.float32))
+    if dtype == "float32":
+        np.testing.assert_allclose(got.numpy(), want, rtol=F32_TOL, atol=F32_TOL)
+    else:
+        np.testing.assert_allclose(got.float().numpy(), want, rtol=BF16_STEP,
+                                   atol=BF16_STEP * float(np.abs(want).max()))
 
 
 def test_op_without_a_card_raises_instead_of_falling_back():

@@ -47,8 +47,12 @@ def test_vq_kernel_matches_plain(gen, dtype, n, k, d):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("g,s,d,heads", [(37, 7, 64, 2), (3, 16, 512, 16), (10, 1, 96, 3)])
+@pytest.mark.parametrize("g,s,d,heads", [(37, 7, 64, 2), (3, 16, 512, 16), (10, 1, 96, 3),
+                                         (513, 16, 512, 16), (9, 32, 256, 8), (11, 16, 64, 8),
+                                         (6, 16, 256, 4), (5, 5, 36, 3)])
 def test_axial_kernel_matches_plain(gen, dtype, g, s, d, heads):
+    """G=513 is not a multiple of the groups a block takes; S=32; hd 8, 64;
+    hd=12 (not whole 16-byte vectors in bf16) takes the scalar edge."""
     q, k, v = (torch.randn(g, s, d, generator=gen, device="cuda").to(dtype)
                for _ in range(3))
     got = ax.axial_slot_attention(q, k, v, heads)
@@ -208,12 +212,17 @@ def _block_params(gen, d, dtype):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("g,s,d,heads", [(37, 7, 64, 2), (3, 16, 512, 16), (10, 1, 96, 3)])
+@pytest.mark.parametrize("g,s,d,heads", [(37, 7, 64, 2), (3, 16, 512, 16), (10, 1, 96, 3),
+                                         (9, 7, 64, 2), (5, 13, 128, 4), (130, 16, 512, 16),
+                                         (7, 32, 128, 2)])
 def test_axial_block_kernel_matches_plain(gen, dtype, g, s, d, heads):
-    """Ragged G against the kernel's 32-row tile. bf16: one rounding step of
-    each value plus 2**-7 of the largest |output|, for an intermediate (seq,
-    whose residual reaches the output) that rounds to its neighbouring bf16
-    value (the kernel and the plain version sum in other orders)."""
+    """Ragged G against the kernel's tiles (64 rows of whole groups, clusters
+    of two tiles in bf16): groups that do not fill a tile (S=7, 13), a ragged
+    last cluster (G=130: 33 tiles), S=32 with hd=64; D=96 takes the mma.sync
+    path. bf16: one rounding step of each value plus 2**-7 of the largest
+    |output|, for an intermediate (seq, whose residual reaches the output)
+    that rounds to its neighbouring bf16 value (the kernel and the plain
+    version sum in other orders)."""
     x = torch.randn(g, s, d, generator=gen, device="cuda").to(dtype)
     params = _block_params(gen, d, dtype)
     before = ax.KERNEL_BLOCK.launches
@@ -224,6 +233,16 @@ def test_axial_block_kernel_matches_plain(gen, dtype, g, s, d, heads):
     scale = float(want.float().abs().max())
     tol = TOL[dtype] if dtype == torch.float32 else dict(rtol=2**-7, atol=2**-7 * scale)
     torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+@pytest.mark.parametrize("g,s,d,heads", [(130, 16, 512, 16), (10, 1, 96, 3)])
+def test_axial_block_kernel_is_deterministic(gen, g, s, d, heads):
+    """Two launches on the same inputs give the same bits (no atomics, a
+    fixed order of every sum)."""
+    x = torch.randn(g, s, d, generator=gen, device="cuda").to(torch.bfloat16)
+    params = _block_params(gen, d, torch.bfloat16)
+    first = ax.axial_block_fused(x, params, heads)
+    assert torch.equal(first, ax.axial_block_fused(x, params, heads))
 
 
 def test_axial_block_rejects_what_it_does_not_take(gen):

@@ -70,6 +70,19 @@ def test_axial_slot_attention_matches_jax(impl):
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6)
 
 
+@pytest.mark.parametrize("impl", JAX_IMPLS)
+def test_axial_slot_attention_matches_jax_at_main_width(impl):
+    """The main path's width (S=16, D=512, 16 heads of 32) on 5 groups: the
+    oracle the card's kernel is held to."""
+    rng = np.random.RandomState(5)
+    q, k, v = (rng.randn(5, 16, 512).astype(np.float32) for _ in range(3))
+    want = np.asarray(jax_axial.axial_slot_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), 16, impl=impl))
+    got = axial_slot_attention(torch.from_numpy(q), torch.from_numpy(k),
+                               torch.from_numpy(v), 16)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6)
+
+
 N, L = 44, 5  # N=44 is ragged against the JAX kernel's 8-row tiles
 
 
