@@ -114,18 +114,34 @@ def bound_ms(nbytes: float, flops: float,
 
 
 def check_vq(torch, vq, gen) -> dict:
-    """VQ nearest code: ids equal on >= 99.9% of rows, every other row a
-    near-tie (its two distances within 1e-5 of the row's scale), codes the
-    exact codebook rows."""
+    """VQ nearest code at the main path's shape, in f32 and bf16: ids equal on
+    >= 99.9% of rows, every other row a near-tie (its two distances within
+    1e-5 of the row's scale), codes the exact codebook rows, the ids-only
+    entry's ids those of ``nearest_with_codes``; bf16 takes the TMA/wgmma
+    variant in both modes, f32 the SIMT one. The row times bf16 with codes
+    host-launched (``time_ms``), the call and the clock of earlier rows; the
+    log line beside it gives device times (``graph_ms``: at tens of
+    microseconds the wrapper's host work outlasts the kernel) of the same
+    call and its plain version, bf16 ids only, f32 beside f32 plain, and
+    cuBLAS's bf16 product ``z @ cb.T`` alone (less work than the kernel: no
+    |e|^2, no argmin, no gather)."""
     out = {}
     for dtype in (torch.float32, torch.bfloat16):
         z = torch.relu(torch.randn(VQ_N, VQ_D, generator=gen, device="cuda")).to(dtype)
         cb = (torch.randn(VQ_K, VQ_D, generator=gen, device="cuda") * 0.5).to(dtype)
+        before = dict(vq.ROUTE_LAUNCHES)
         idx, codes = vq.nearest_with_codes(z, cb)
+        ids_only = vq.nearest_codebook_indices(z, cb)
         ref_idx, ref_codes = vq.nearest_with_codes(z, cb, impl="torch")
         torch.cuda.synchronize()
+        want = "wgmma" if dtype == torch.bfloat16 else "simt"
+        routes = {r: vq.ROUTE_LAUNCHES[r] - before[r] for r in vq.ROUTES}
+        if routes != {r: 2 if r == want else 0 for r in vq.ROUTES}:
+            raise AssertionError(f"vq {dtype}: variants launched {routes}, expected {want}")
         if not torch.equal(codes, cb[idx.long()]):
             raise AssertionError(f"vq {dtype}: codes are not the rows of the ids")
+        if not torch.equal(ids_only, idx):
+            raise AssertionError(f"vq {dtype}: the ids-only entry gives other ids")
         zd, cbd = z.double(), cb.double()
         dist = (cbd * cbd).sum(1)[None] - 2 * zd @ cbd.T
         rows = torch.arange(VQ_N, device="cuda")
@@ -136,20 +152,38 @@ def check_vq(torch, vq, gen) -> dict:
             raise AssertionError(f"vq {dtype}: {mismatch} ids differ, largest gap "
                                  f"{float((gap / scale).max()):.3g} of the row scale")
         err = float((codes.float() - ref_codes.float()).abs().max())
-        log(f"vq {str(dtype)[6:]}: {mismatch}/{VQ_N} ids differ (near-ties), "
-            f"max |codes - plain| {err}")
+        log(f"vq {str(dtype)[6:]}: {routes[want]} launches on the {want} variant, "
+            f"{mismatch}/{VQ_N} ids differ (near-ties), max |codes - plain| {err}")
         out[dtype] = (z, cb, err)
+        del zd, cbd, dist
+    z32, cb32, _ = out[torch.float32]
     z, cb, err = out[torch.bfloat16]
-    it = z.element_size()
-    nbytes = 2 * VQ_N * VQ_D * it + VQ_K * VQ_D * it + VQ_N * 4
-    b, by = bound_ms(nbytes, 2.0 * VQ_N * VQ_K * VQ_D)
-    return {
+    flops = 2.0 * VQ_N * VQ_K * VQ_D
+    io_bytes = VQ_K * VQ_D * 2 + VQ_N * 4  # the codebook in, the ids out
+    b, by = bound_ms(2 * VQ_N * VQ_D * 2 + io_bytes, flops, BF16_TC_FLOP_PER_S)
+    ids_b, ids_by = bound_ms(VQ_N * VQ_D * 2 + io_bytes, flops, BF16_TC_FLOP_PER_S)
+    f32_b, f32_by = bound_ms(2 * VQ_N * VQ_D * 4 + VQ_K * VQ_D * 4 + VQ_N * 4, flops)
+    row = {
         "name": "vq_nearest", "route": "cuda", "source": "mage_tpu_torch/csrc/vq.cu",
         "replaces": "mage_tpu/ops/vq.py:53", "max_abs_err": err,
         "ms": time_ms(lambda: vq.nearest_with_codes(z, cb)),
         "plain_ms": time_ms(lambda: vq.nearest_with_codes(z, cb, impl="torch")),
         "bound_ms": b, "bound_by": by, "library_ms": None,
     }
+    extra = {
+        "bf16_with_codes_device_ms": graph_ms(torch, lambda: vq.nearest_with_codes(z, cb)),
+        "bf16_with_codes_plain_device_ms": graph_ms(
+            torch, lambda: vq.nearest_with_codes(z, cb, impl="torch"), iters=5),
+        "bf16_ids_only_device_ms": graph_ms(torch, lambda: vq.nearest_codebook_indices(z, cb)),
+        "bf16_ids_only_bound_ms": ids_b, "bf16_ids_only_bound_by": ids_by,
+        "f32_with_codes_device_ms": graph_ms(torch, lambda: vq.nearest_with_codes(z32, cb32)),
+        "f32_plain_device_ms": graph_ms(
+            torch, lambda: vq.nearest_with_codes(z32, cb32, impl="torch"), iters=5),
+        "f32_bound_ms": f32_b, "f32_bound_by": f32_by + " (f32 CUDA cores, SIMT variant)",
+        "bf16_cublas_product_device_ms": graph_ms(torch, lambda: z @ cb.T),
+    }
+    log("vq at (8192, 512, 1024), beside the row: " + json.dumps(extra))
+    return row
 
 
 def check_axial(torch, F, ax, gen) -> dict:
@@ -495,14 +529,20 @@ def run_main_path(torch, np, build_pipeline, kernels, card: str,
     video = pipe.generate(batch, generator=gen.manual_seed(1), cached=True)  # warm-up
     torch.cuda.synchronize()
 
+    from mage_tpu_torch.ops import vq
+
     for kern in kernels.values():
         kern.launches = 0
+    vq.ROUTE_LAUNCHES.update(dict.fromkeys(vq.ROUTES, 0))
     video = pipe.generate(batch, generator=gen.manual_seed(1), cached=True)
     torch.cuda.synchronize()
     launches = {name: kern.launches for name, kern in kernels.items()}
-    log(f"{config} ({spatial_attn}) launches per generate: {launches}")
+    log(f"{config} ({spatial_attn}) launches per generate: {launches}, vq variants "
+        f"{vq.ROUTE_LAUNCHES}")
     if launches != want:
         raise AssertionError(f"launch counts {launches}, expected {want}")
+    if vq.ROUTE_LAUNCHES != {"simt": 0, "wgmma": launches["vq_nearest"]}:
+        raise AssertionError("the main path's bf16 vq launch did not take the wgmma variant")
     if tuple(video.shape) != (BATCH, FRAMES, RES, RES, 3):
         raise AssertionError(f"output shape {tuple(video.shape)}")
     if not bool(torch.isfinite(video.float()).all()):

@@ -7,6 +7,16 @@ the lowest index. On a CUDA tensor it launches the hand-written kernel in
 version ``_vq_plain``, which is also the oracle the kernel is checked
 against.
 
+The kernel has two variants, chosen by :func:`route` from the inputs alone:
+``"wgmma"`` (bf16 tensor cores fed by TMA) for bf16 with a width that is a
+multiple of 8 and 16-byte aligned rows, which is every shape the main path
+gives it, and ``"simt"`` (f32 FMAs in sequence, ids those of an f32
+computation) for f32 and any other shape. ``nearest_codebook_indices``
+launches it without a codes buffer, so it writes ids only;
+``nearest_with_codes`` also has it gather the codes. Both are one entry
+point and one launch count (``KERNEL``); ``ROUTE_LAUNCHES`` counts the
+launches of each variant.
+
 The straight-through gradient (``vq_straight_through``) comes with training.
 """
 
@@ -20,8 +30,10 @@ from mage_tpu_torch import _build
 
 KERNEL = _build.Kernel(
     "mage_vq_nearest",
-    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
 )
+ROUTES = ("simt", "wgmma")  # position = the C entry's route code
+ROUTE_LAUNCHES = dict.fromkeys(ROUTES, 0)
 
 
 def _vq_plain(z_flat: torch.Tensor, codebook: torch.Tensor):
@@ -33,37 +45,59 @@ def _vq_plain(z_flat: torch.Tensor, codebook: torch.Tensor):
     return idx, codebook[idx]
 
 
-def _vq_cuda(z_flat: torch.Tensor, codebook: torch.Tensor):
+def route(z_flat: torch.Tensor, codebook: torch.Tensor) -> str:
+    """The kernel variant for these (N, D) tokens and (K, D) codebook:
+    ``"wgmma"`` when both are bf16 with D % 8 == 0 and 16-byte aligned (TMA
+    needs 16-byte rows and bases), ``"simt"`` otherwise."""
+    if (z_flat.dtype == torch.bfloat16 and codebook.dtype == torch.bfloat16
+            and z_flat.shape[-1] % 8 == 0 and z_flat.data_ptr() % 16 == 0
+            and codebook.data_ptr() % 16 == 0):
+        return "wgmma"
+    return "simt"
+
+
+def _vq_cuda(z_flat: torch.Tensor, codebook: torch.Tensor, with_codes: bool):
     _build.check_cuda("nearest_codebook_indices", z_flat, codebook)
     n, d = z_flat.shape
     k = codebook.shape[0]
     if codebook.shape[1] != d:
         raise ValueError(f"codebook width {codebook.shape[1]} != token width {d}")
-    cbsq = torch.empty(k, dtype=torch.float32, device=z_flat.device)
-    idx = torch.empty(n, dtype=torch.int32, device=z_flat.device)
-    codes = torch.empty((n, d), dtype=codebook.dtype, device=z_flat.device)
-    KERNEL(z_flat.data_ptr(), codebook.data_ptr(), cbsq.data_ptr(), idx.data_ptr(),
-           codes.data_ptr(), n, k, d, _build.dtype_code(z_flat),
-           _build.stream_ptr(z_flat.device))
+    if k < 1:
+        raise ValueError("the codebook is empty")
+    dev = z_flat.device
+    variant = route(z_flat, codebook)
+    cbsq = torch.empty(k, dtype=torch.float32, device=dev)
+    # the SIMT variant's cross-CTA merge; the wgmma variant reads no keys
+    keys = torch.empty(n, dtype=torch.int64, device=dev) if variant == "simt" else None
+    idx = torch.empty(n, dtype=torch.int32, device=dev)
+    codes = torch.empty((n, d), dtype=codebook.dtype, device=dev) if with_codes else None
+    KERNEL(z_flat.data_ptr(), codebook.data_ptr(), cbsq.data_ptr(),
+           None if keys is None else keys.data_ptr(),
+           idx.data_ptr(), None if codes is None else codes.data_ptr(), n, k, d,
+           _build.dtype_code(z_flat), ROUTES.index(variant), _build.stream_ptr(dev))
+    ROUTE_LAUNCHES[variant] += 1
     return idx, codes
+
+
+def _nearest(z: torch.Tensor, codebook: torch.Tensor, impl: str, with_codes: bool):
+    d = z.shape[-1]
+    z_flat = z.reshape(-1, d)
+    if _build.use_kernel(impl, z_flat):
+        return _vq_cuda(z_flat.contiguous(), codebook.contiguous(), with_codes)
+    return _vq_plain(z_flat, codebook)
 
 
 def nearest_with_codes(z: torch.Tensor, codebook: torch.Tensor, *, impl: str = "auto"):
     """(..., D) tokens -> ((...,) int32 ids, (..., D) codes)."""
-    batch_shape = z.shape[:-1]
-    d = z.shape[-1]
-    z_flat = z.reshape(-1, d)
-    if _build.use_kernel(impl, z_flat):
-        idx, codes = _vq_cuda(z_flat.contiguous(), codebook.contiguous())
-    else:
-        idx, codes = _vq_plain(z_flat, codebook)
-    return idx.reshape(batch_shape), codes.reshape(*batch_shape, d)
+    idx, codes = _nearest(z, codebook, impl, with_codes=True)
+    return idx.reshape(z.shape[:-1]), codes.reshape(z.shape)
 
 
 def nearest_codebook_indices(z: torch.Tensor, codebook: torch.Tensor, *,
                              impl: str = "auto") -> torch.Tensor:
-    """Nearest-neighbour codebook ids for ``z``: (..., D) -> (...,) int32."""
-    return nearest_with_codes(z, codebook, impl=impl)[0]
+    """Nearest-neighbour codebook ids for ``z``: (..., D) -> (...,) int32.
+    The kernel writes no codes for it."""
+    return _nearest(z, codebook, impl, with_codes=False)[0].reshape(z.shape[:-1])
 
 
 def codebook_lookup(codebook: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

@@ -28,17 +28,33 @@ def gen():
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("n,k,d", [(1000, 100, 72), (33, 512, 1024), (5, 7, 3)])
+@pytest.mark.parametrize("n,k,d", [(1000, 100, 72), (33, 512, 1024), (5, 7, 3),
+                                   (8192, 512, 1024), (8193, 513, 1024), (129, 520, 1040)])
 def test_vq_kernel_matches_plain(gen, dtype, n, k, d):
+    """(8192, 512, 1024) is the main path's shape; 8193 rows and 513 codes
+    are ragged against the bf16 variant's 64-row tiles and 512-code chunks
+    and the SIMT variant's 128 x 128 tiles, D=1040 against both depths; D=3
+    takes the SIMT variant in bf16 too. Codes 5 and k-1 are an exact tie in
+    different chunk halves or CTAs."""
     z = torch.randn(n, d, generator=gen, device="cuda").to(dtype)
     cb = torch.randn(k, d, generator=gen, device="cuda").to(dtype)
     cb[k // 2] = cb[k // 3]  # an exact tie: the lower index must win
     z[0] = cb[k // 3]
-    before = vq.KERNEL.launches
+    cb[k - 1] = cb[5]  # a tie across chunks or CTAs
+    z[1] = cb[5]
+    before = vq.KERNEL.launches, dict(vq.ROUTE_LAUNCHES)
     idx, codes = vq.nearest_with_codes(z, cb)
-    assert vq.KERNEL.launches == before + 1
+    assert vq.KERNEL.launches == before[0] + 1
+    variant = vq.route(z, cb)
+    assert vq.ROUTE_LAUNCHES[variant] == before[1][variant] + 1
+    ids_only = vq.nearest_codebook_indices(z, cb)
+    assert vq.KERNEL.launches == before[0] + 2
+    again, codes_again = vq.nearest_with_codes(z, cb)
+    torch.testing.assert_close(ids_only, idx, rtol=0, atol=0)
+    assert torch.equal(again, idx) and torch.equal(codes_again, codes)  # two launches bit-equal
     ref_idx, _ = vq.nearest_with_codes(z, cb, impl="torch")
     assert int(idx[0]) == k // 3 and int(ref_idx[0]) == k // 3
+    assert int(idx[1]) == 5 and int(ref_idx[1]) == 5
     torch.testing.assert_close(codes, cb[idx.long()], rtol=0, atol=0)
     dist = (cb.double() ** 2).sum(1)[None] - 2 * z.double() @ cb.double().T
     rows = torch.arange(n, device="cuda")

@@ -23,6 +23,7 @@ from mage_tpu_torch.ops import (  # noqa: E402
     nearest_codebook_indices,
     nearest_with_codes,
 )
+from mage_tpu_torch.ops import vq as torch_vq  # noqa: E402
 
 JAX_IMPLS = ["xla", "pallas_interpret"]
 
@@ -54,6 +55,23 @@ def test_nearest_with_codes_keeps_batch_shape_and_gathers():
     torch.testing.assert_close(idx, nearest_codebook_indices(z, cb, impl="torch"))
     with pytest.raises(ValueError):
         nearest_codebook_indices(z, cb, impl="pallas")
+
+
+@pytest.mark.parametrize("dtype,n,k,d,offset,want", [
+    (torch.bfloat16, 8192, 512, 1024, 0, "wgmma"),  # the main path's shape
+    (torch.bfloat16, 129, 520, 1040, 0, "wgmma"),
+    (torch.bfloat16, 5, 7, 3, 0, "simt"),           # rows not 16-byte multiples
+    (torch.bfloat16, 64, 512, 1024, 1, "simt"),     # base not 16-byte aligned
+    (torch.float32, 8192, 512, 1024, 0, "simt"),    # f32: sequential FMAs
+])
+def test_vq_route_picks_the_kernel_variant_from_the_inputs(dtype, n, k, d, offset, want):
+    """``route`` (the choice the CUDA wrapper passes to the kernel) sends
+    bf16 with D % 8 == 0 and 16-byte aligned bases to the TMA/wgmma variant
+    and everything else to the SIMT one."""
+    z = torch.zeros(n * d + 8, dtype=dtype)[offset:offset + n * d].view(n, d)
+    cb = torch.zeros(k, d, dtype=dtype)
+    assert z.data_ptr() % 16 == (0 if offset == 0 else offset * z.element_size())
+    assert torch_vq.route(z, cb) == want
 
 
 G, S, D, HEADS = 20, 6, 64, 2  # G=20 is ragged against the JAX kernel's 8-row tiles
