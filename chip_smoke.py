@@ -21,7 +21,21 @@ fatal on failure (exit code 1; 2 when there is no GPU or no package):
    MAGE path again with its launch counts, frames/s and stage split beside
    the flat route's, then f32 GPU-vs-CPU checks of MAGE (cached sampler) and
    MAGE+ (both samplers);
-8. one JSON line with every kernel's numbers, then the closing JSON line.
+8. stage-2 training (``mage_tpu_torch.training``) at ``bench_train.py``'s
+   defaults: MAGE from ``config/mage_caterv1.yaml`` at full width, batch 16,
+   16 frames, bf16 over f32 masters, one warm-up and 3 timed steps of
+   ``make_mage_train_step`` (s/step by CUDA events, the stage split, peak
+   memory with remat off and on, the losses, one vq launch a step on its
+   SIMT variant); one eval step on each spatial route (4 axial, then 4
+   fused-block launches); the kernels at the training shapes; MAGE+
+   (``config/mage+_caterv2.yaml``, auto-beta) for 3 steps with beta in
+   [0, 1]; and one f32 train step and one eval-mode loss at batch 2 on the
+   GPU (kernels) against the CPU (plain versions): loss terms within 1e-4
+   relative, each gradient within 1e-3 of its tensor's largest |g| (both
+   also read against an f64 CPU run). The step's TFLOP per stage
+   (``torch.utils.flop_counter``) and its kernel time under
+   ``torch.profiler`` are printed beside the stage split;
+9. one JSON line with every kernel's numbers, then the closing JSON line.
 """
 
 from __future__ import annotations
@@ -59,6 +73,12 @@ GN_BF16_ATOL = 1e-3  # an activation that rounds to the neighbouring bf16 value
 BLOCK_BF16_ATOL_REL = 2.0 ** -7
 BLOCK_BF16_VS_F32 = 1.1  # the kernel's mean bf16 error over the plain version's
 NAIVE_G = BATCH * FRAMES * 16  # the naive sampler's groups per spatial block launch
+# training: bench_train.py's defaults and step arguments
+TRAIN_BATCH, TRAIN_STEPS = 16, 3
+TRAIN_LR, TRAIN_BETA, TRAIN_ALPHA = 5e-5, 0.00025, 0.001
+TRAIN_VQ_N = TRAIN_BATCH * FRAMES * 16 * 16  # tokens of one step's frozen encode
+TRAIN_G = TRAIN_BATCH * FRAMES * 16  # groups of an eval step's spatial block
+TERM_RTOL, GRAD_TOL = 1e-4, 1e-3  # the f32 GPU-vs-CPU training check
 
 
 def log(msg: str) -> None:
@@ -529,19 +549,11 @@ def run_main_path(torch, np, build_pipeline, kernels, card: str,
     video = pipe.generate(batch, generator=gen.manual_seed(1), cached=True)  # warm-up
     torch.cuda.synchronize()
 
-    from mage_tpu_torch.ops import vq
-
-    for kern in kernels.values():
-        kern.launches = 0
-    vq.ROUTE_LAUNCHES.update(dict.fromkeys(vq.ROUTES, 0))
-    video = pipe.generate(batch, generator=gen.manual_seed(1), cached=True)
-    torch.cuda.synchronize()
-    launches = {name: kern.launches for name, kern in kernels.items()}
-    log(f"{config} ({spatial_attn}) launches per generate: {launches}, vq variants "
-        f"{vq.ROUTE_LAUNCHES}")
-    if launches != want:
-        raise AssertionError(f"launch counts {launches}, expected {want}")
-    if vq.ROUTE_LAUNCHES != {"simt": 0, "wgmma": launches["vq_nearest"]}:
+    video, launches, routes = count_launches(
+        torch, kernels, lambda: pipe.generate(batch, generator=gen.manual_seed(1), cached=True))
+    log(f"{config} ({spatial_attn}) launches per generate: {launches}, vq variants {routes}")
+    expect(launches, want, f"{config} ({spatial_attn}) generate")
+    if routes != {"simt": 0, "wgmma": launches["vq_nearest"]}:
         raise AssertionError("the main path's bf16 vq launch did not take the wgmma variant")
     if tuple(video.shape) != (BATCH, FRAMES, RES, RES, 3):
         raise AssertionError(f"output shape {tuple(video.shape)}")
@@ -669,6 +681,389 @@ def run_magep_reference_check(torch, np, build_pipeline, spatial_attn: str = "fl
         raise AssertionError("the GPU MAGE+ pipeline disagrees with the CPU reference")
 
 
+def train_batch(torch, batch: int, context: int, seed: int) -> dict:
+    """``bench_train.py``'s batch, made on the card: frames uniform in
+    [-0.5, 0.5], a caption of 1, four words in 3..28 and 2, a uniform speed."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    text = torch.zeros(batch, context, dtype=torch.int64, device="cuda")
+    text[:, 0] = 1
+    text[:, 1:5] = torch.randint(3, 29, (batch, 4), generator=gen, device="cuda")
+    text[:, 5] = 2
+    return {"images": torch.rand(batch, FRAMES, RES, RES, 3, generator=gen, device="cuda") - 0.5,
+            "text": text, "speed": torch.rand(batch, generator=gen, device="cuda")}
+
+
+def count_launches(torch, kernels, fn):
+    """``fn()`` with every launch count set to 0 just before and read just
+    after -> (fn's result, the counts, the vq launches per variant)."""
+    from mage_tpu_torch.ops import vq
+
+    torch.cuda.synchronize()
+    for kern in kernels.values():
+        kern.launches = 0
+    vq.ROUTE_LAUNCHES.update(dict.fromkeys(vq.ROUTES, 0))
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {name: kern.launches for name, kern in kernels.items()}, dict(vq.ROUTE_LAUNCHES)
+
+
+def expect(launches: dict, want: dict, what: str) -> None:
+    full = dict.fromkeys(launches, 0)
+    full.update(want)
+    if launches != full:
+        raise AssertionError(f"{what}: launch counts {launches}, expected {full}")
+
+
+def spatial_blocks(pipe) -> int:
+    """The decoder's H and W blocks (every block but each third): 4 of 6."""
+    return sum(1 for i in range(len(pipe.core.generate_model.blocks)) if i % 3)
+
+
+def train_stage_split(torch, mt, pipe, opt, batch, gen) -> dict:
+    """Device time of the train step's four stages (median of 3) by CUDA
+    events around the calls ``make_mage_train_step`` makes: the f32 frozen
+    encode, the bf16 forward through the loss, its backward, the Adam step;
+    and the peak GiB of the encode alone and of the rest of the step, each
+    from a reset of the peak counter (the last of the 3 runs)."""
+    names = ("encode", "forward", "backward", "optimizer")
+    runs = {name: [] for name in names}
+    peaks = {}
+    for _ in range(3):
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+        opt.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        events[0].record()
+        latents = pipe.encode_first_stage(batch["images"])
+        events[1].record()
+        torch.cuda.synchronize()
+        peaks["encode_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        torch.cuda.reset_peak_memory_stats()
+        events[2].record()
+        params = mt.cast_floating(dict(pipe.core.named_parameters()), torch.bfloat16)
+        terms = pipe.loss_terms({**batch, "latents": latents}, params=params,
+                                compute_dtype=torch.bfloat16, generator=gen)
+        loss = mt.train_loss(pipe, terms, TRAIN_BETA, TRAIN_ALPHA)
+        events[3].record()
+        loss.backward()
+        events[4].record()
+        opt.step()
+        events[5].record()
+        torch.cuda.synchronize()
+        peaks["rest_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        for name, (a, b) in zip(names, ((0, 1), (2, 3), (3, 4), (4, 5))):
+            runs[name].append(events[a].elapsed_time(events[b]))
+    return {**{name: statistics.median(v) for name, v in runs.items()}, **peaks}
+
+
+def train_step_flops(torch, mt, pipe, batch, gen) -> dict:
+    """TFLOP of one train step's encode, forward and backward, as
+    ``torch.utils.flop_counter`` counts them (products and convolutions;
+    the vq kernel, a ctypes launch, is not counted)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    out = {}
+    with FlopCounterMode(display=False) as fc:
+        latents = pipe.encode_first_stage(batch["images"])
+    out["encode"] = fc.get_total_flops() / 1e12
+    with FlopCounterMode(display=False) as fc:
+        params = mt.cast_floating(dict(pipe.core.named_parameters()), torch.bfloat16)
+        terms = pipe.loss_terms({**batch, "latents": latents}, params=params,
+                                compute_dtype=torch.bfloat16, generator=gen)
+        loss = mt.train_loss(pipe, terms, TRAIN_BETA, TRAIN_ALPHA)
+    out["forward"] = fc.get_total_flops() / 1e12
+    with FlopCounterMode(display=False) as fc:
+        loss.backward()
+    out["backward"] = fc.get_total_flops() / 1e12
+    pipe.core.zero_grad(set_to_none=True)
+    return out
+
+
+def profile_train_step(torch, step, batch, gen, s_per_step: float) -> dict:
+    """One train step under ``torch.profiler``: the device time summed over
+    its kernels, that sum's share of the step's unprofiled time (the busy
+    share; the kernels run on one stream), and the 12 kernels with the most
+    device time. Only the kernels' own records count: an operator's record
+    also carries the time of the kernels it launched."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step(batch, TRAIN_LR, TRAIN_BETA, TRAIN_ALPHA, generator=gen)
+        torch.cuda.synchronize()
+
+    def device_us(e):
+        return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
+
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    total_ms = sum(device_us(e) for e in events) / 1e3
+    top = sorted(events, key=device_us, reverse=True)[:12]
+    return {"device_ms": total_ms, "busy_share": total_ms / (s_per_step * 1e3),
+            "top": [{"name": e.key[:80], "ms": device_us(e) / 1e3, "calls": e.count}
+                    for e in top]}
+
+
+def run_training(torch, build_pipeline, kernels, card: str) -> tuple:
+    """MAGE stage-2 training at full width, bf16, batch 16, 16 frames:
+    launch counts around the timed steps and one eval step per spatial
+    route, s/step, the stage split, peak memory with remat off and on.
+    Returns (launches per train step, per eval step on each route, numbers)."""
+    from mage_tpu_torch.training import mage_trainer as mt
+
+    pipe = build_pipeline("config/mage_caterv1.yaml", FRAMES, device="cuda", seed=0)
+    opt = mt.make_mage_optimizer(pipe.core)
+    step = mt.make_mage_train_step(pipe, opt, torch.bfloat16)
+    batch = train_batch(torch, TRAIN_BATCH, pipe.core.text_encoder.positions.num_embeddings, 0)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    args = (TRAIN_LR, TRAIN_BETA, TRAIN_ALPHA)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    loss_warm = float(step(batch, *args, generator=gen)["final_loss"])  # warm-up
+    peak_off = torch.cuda.max_memory_allocated() / 2**30
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+
+    def timed_steps():
+        start.record()
+        for _ in range(TRAIN_STEPS):
+            terms = step(batch, *args, generator=gen)
+        end.record()
+        return terms
+
+    terms, launches, routes = count_launches(torch, kernels, timed_steps)
+    s_per_step = start.elapsed_time(end) / TRAIN_STEPS / 1e3
+    log(f"MAGE train: launches in {TRAIN_STEPS} steps {launches}, vq variants {routes}")
+    expect(launches, {"vq_nearest": TRAIN_STEPS}, "MAGE train steps")
+    if routes != {"simt": TRAIN_STEPS, "wgmma": 0}:
+        raise AssertionError("the f32 frozen encode's vq launch did not take the SIMT variant")
+    loss_after = float(terms["final_loss"])
+    if not (math.isfinite(loss_warm) and math.isfinite(loss_after)):
+        raise AssertionError(f"non-finite training loss: {loss_warm}, {loss_after}")
+    stages = train_stage_split(torch, mt, pipe, opt, batch, gen)
+    tflop = train_step_flops(torch, mt, pipe, batch, gen)
+    tflop_per_s = {k: v / stages[k] * 1e3 for k, v in tflop.items()}
+    trace = profile_train_step(torch, step, batch, gen, s_per_step)
+    log("MAGE train step under torch.profiler: " + json.dumps(trace))
+
+    pipe.core.remat = pipe.core.generate_model.remat = True
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    loss_remat = float(step(batch, *args, generator=gen)["final_loss"])
+    peak_on = torch.cuda.max_memory_allocated() / 2**30
+    stages_remat = train_stage_split(torch, mt, pipe, opt, batch, gen)
+    pipe.core.remat = pipe.core.generate_model.remat = False
+    if not math.isfinite(loss_remat):
+        raise AssertionError("non-finite loss with remat on")
+
+    evals, eval_ms_by_route = {}, {}
+    fused_pipe = build_pipeline("config/mage_caterv1.yaml", FRAMES, device="cuda", seed=0,
+                                spatial_attn="fusedblock")
+    for route, pipe_r in (("flat", pipe), ("fusedblock", fused_pipe)):
+        eval_step = mt.make_mage_eval_step(pipe_r, torch.bfloat16)
+        eval_step(batch, TRAIN_BETA, TRAIN_ALPHA, generator=gen)  # warm-up
+        terms, counts, _ = count_launches(
+            torch, kernels, lambda: eval_step(batch, TRAIN_BETA, TRAIN_ALPHA, generator=gen))
+        eval_ms = time_ms(lambda: eval_step(batch, TRAIN_BETA, TRAIN_ALPHA, generator=gen),
+                          iters=3, warmup=0)
+        op = "axial_block_fused" if route == "fusedblock" else "axial_slot_attention"
+        log(f"MAGE eval step ({route}): launches {counts}, final loss "
+            f"{float(terms['final_loss'])}")
+        expect(counts, {"vq_nearest": 1, op: spatial_blocks(pipe_r)}, f"MAGE eval step ({route})")
+        if not math.isfinite(float(terms["final_loss"])):
+            raise AssertionError(f"non-finite eval loss ({route})")
+        evals[route] = counts
+        eval_ms_by_route[route] = eval_ms
+    result = {
+        "config": "config/mage_caterv1.yaml", "card": card, "batch": TRAIN_BATCH,
+        "frames_length": FRAMES, "dtype": "bfloat16 over f32 masters",
+        "tf32": {"cudnn": torch.backends.cudnn.allow_tf32,
+                 "matmul": torch.backends.cuda.matmul.allow_tf32},
+        "s_per_step": s_per_step, "stage_ms": stages, "stage_ms_remat": stages_remat,
+        "stage_tflop": tflop, "stage_tflop_per_s": tflop_per_s,
+        "peak_gib_remat_off": peak_off, "peak_gib_remat_on": peak_on,
+        "eval_step_ms": eval_ms_by_route, "loss_after_warmup": loss_warm,
+        "loss_after_steps": loss_after, "loss_remat_step": loss_remat,
+        "vq_launches_per_step": launches["vq_nearest"] / TRAIN_STEPS,
+    }
+    log("MAGE training: " + json.dumps(result))
+    return {k: v / TRAIN_STEPS for k, v in launches.items()}, evals, result
+
+
+def run_magep_training(torch, build_pipeline, kernels, batch_size: int) -> dict:
+    """MAGE+ (KL-AE first stage, auto-beta) for 3 bf16 steps: beta in [0, 1]
+    and a finite PID state each step."""
+    from mage_tpu_torch.training import mage_trainer as mt
+    from mage_tpu_torch.training.pid import initial_pid_state
+
+    pipe = build_pipeline("config/mage+_caterv2.yaml", FRAMES, device="cuda", seed=0)
+    live_head(torch, pipe)
+    if not pipe.auto_beta:
+        raise AssertionError("config/mage+_caterv2.yaml should train with auto_beta")
+    step = mt.make_mage_train_step(pipe, mt.make_mage_optimizer(pipe.core), torch.bfloat16)
+    batch = train_batch(torch, batch_size, pipe.core.text_encoder.positions.num_embeddings, 2)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    state = {"pid": initial_pid_state("cuda"), "log": []}
+
+    def steps():
+        for i in range(TRAIN_STEPS):
+            terms = step(batch, TRAIN_LR, state["pid"], TRAIN_ALPHA, generator=gen)
+            state["pid"] = terms["_pid_state"]
+            row = {"step": i, "beta": float(terms["beta"]), "kl": float(terms["kl_loss"]),
+                   "final_loss": float(terms["final_loss"]), "pid": state["pid"].tolist()}
+            log(f"MAGE+ train step: {json.dumps(row)}")
+            if not (0.0 <= row["beta"] <= 1.0 and math.isfinite(row["final_loss"])
+                    and all(math.isfinite(v) for v in row["pid"])):
+                raise AssertionError(f"MAGE+ auto-beta step out of range: {row}")
+            state["log"].append(row)
+
+    start = time.perf_counter()
+    _, launches, _ = count_launches(torch, kernels, steps)
+    seconds = (time.perf_counter() - start) / TRAIN_STEPS
+    log(f"MAGE+ train (batch {batch_size}): launches in {TRAIN_STEPS} steps {launches}, "
+        f"{seconds} s/step (host clock, each step read back)")
+    expect(launches, {}, "MAGE+ train steps")
+    return {"batch": batch_size, "s_per_step_host": seconds, "steps": state["log"]}
+
+
+def check_train_shapes(torch, vq, ax, tl, gen) -> dict:
+    """The kernels at the training path's shapes, against their plain
+    versions on the same inputs: f32 ids-only vq at (65536, 512, 1024), the
+    frozen encode of one step (ids equal on >= 99.9% of rows, every other
+    row a near-tie); the axial kernel and the fused block at an eval step's
+    G=4096 in bf16 (tolerances as in their main checks). Returns per kernel
+    (ms, bound ms) at that shape."""
+    z = torch.relu(torch.randn(TRAIN_VQ_N, VQ_D, generator=gen, device="cuda"))
+    cb = torch.randn(VQ_K, VQ_D, generator=gen, device="cuda") * 0.5
+    ids = vq.nearest_codebook_indices(z, cb)
+    ref = vq.nearest_codebook_indices(z, cb, impl="torch")
+    zd, cbd = z.double(), cb.double()
+    dist = (cbd * cbd).sum(1)[None] - 2 * zd @ cbd.T
+    rows = torch.arange(TRAIN_VQ_N, device="cuda")
+    gap = (dist[rows, ids.long()] - dist[rows, ref.long()]).abs()
+    mismatch = int((ids != ref).sum())
+    if mismatch > TRAIN_VQ_N * 1e-3 or bool((gap > 1e-5 * dist.abs().amax(1)).any()):
+        raise AssertionError(f"vq f32 at the training shape: {mismatch} ids differ")
+    del zd, cbd, dist, gap
+    out = {"vq_nearest": (
+        graph_ms(torch, lambda: vq.nearest_codebook_indices(z, cb), iters=5),
+        bound_ms(TRAIN_VQ_N * VQ_D * 4 + VQ_K * VQ_D * 4 + TRAIN_VQ_N * 4,
+                 2.0 * TRAIN_VQ_N * VQ_K * VQ_D)[0])}
+    plain_vq = graph_ms(torch, lambda: vq.nearest_codebook_indices(z, cb, impl="torch"), iters=3)
+    del z
+    q, k, v = (torch.randn(TRAIN_G, AX_S, AX_D, generator=gen, device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    got = ax.axial_slot_attention(q, k, v, HEADS).float()
+    want = ax.axial_slot_attention(q, k, v, HEADS, impl="torch").float()
+    if not torch.allclose(got, want, rtol=BF16_RTOL, atol=1e-5):
+        raise AssertionError("axial at G=4096: kernel disagrees with plain")
+    out["axial_slot_attention"] = (
+        time_ms(lambda: ax.axial_slot_attention(q, k, v, HEADS)),
+        bound_ms(4 * q.numel() * 2, 4.0 * TRAIN_G * AX_S * AX_S * AX_D)[0])
+    block = block_weights(torch, tl, gen, torch.bfloat16)
+    params = block.fused_block_params()
+    with torch.no_grad():
+        got = ax.axial_block_fused(q, params, HEADS).float()
+        want = ax.axial_block_fused(q, params, HEADS, impl="torch").float()
+        if not torch.allclose(got, want, rtol=BF16_RTOL,
+                              atol=BLOCK_BF16_ATOL_REL * float(want.abs().max())):
+            raise AssertionError("fused block at G=4096: kernel disagrees with plain")
+        d = AX_D
+        out["axial_block_fused"] = (
+            time_ms(lambda: ax.axial_block_fused(q, params, HEADS)),
+            bound_ms((2 * q.numel() + 12 * d * d + 13 * d) * 2,
+                     2.0 * TRAIN_G * AX_S * 12 * d * d + 4.0 * TRAIN_G * AX_S * AX_S * d,
+                     BF16_TC_FLOP_PER_S)[0])
+    log(f"kernels at the training shapes (ms, bound ms): {json.dumps(out)}; vq f32 "
+        f"{mismatch}/{TRAIN_VQ_N} ids differ (near-ties), plain vq {plain_vq} ms")
+    return out
+
+
+def run_train_reference_check(torch, np, build_pipeline, kernels) -> None:
+    """f32, batch 2, full width, dropout 0, the posterior noise passed in:
+    one train step's loss terms and every parameter's gradient on the GPU
+    (kernels on the path) against the CPU (plain versions), then the
+    eval-mode loss terms and gradients on the same weights, where the
+    spatial blocks run the axial kernel on the GPU. The last motion-anchor
+    block's c_proj bias is held to zero on both sides instead: it shifts
+    every anchor position by one vector per channel, which AdaIN's instance
+    norm removes, so its gradient is rounding noise."""
+    from mage_tpu_torch.training import mage_trainer as mt
+
+    batch = make_batch(np, 2, 32, seed=8)
+    noise = torch.randn(2, 16, 16, 64, generator=torch.Generator().manual_seed(9))
+    shift_invariant = "ma_encoder.blocks.0.mlp.c_proj.bias"
+    outs = {}
+    for device in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        pipe = build_pipeline("config/mage_caterv1.yaml", FRAMES, device=device, seed=0,
+                              dropout=0.0)
+        opt = mt.make_mage_optimizer(pipe.core)
+        step = mt.make_mage_train_step(pipe, opt)
+        weights = {k: v.clone() for k, v in pipe.core.state_dict().items()}
+        terms, train_launches, _ = count_launches(torch, kernels, lambda: step(
+            batch, TRAIN_LR, TRAIN_BETA, TRAIN_ALPHA, posterior_noise=noise))
+        train = ({k: v.item() for k, v in terms.items()},
+                 {k: p.grad.cpu() for k, p in pipe.core.named_parameters()
+                  if p.grad is not None})
+        pipe.core.load_state_dict(weights)
+        pipe.core.zero_grad(set_to_none=True)
+
+        def eval_mode_loss():
+            t = pipe.loss_terms(batch, train=False, posterior_noise=noise)
+            t["final_loss"] = mt.train_loss(pipe, t, TRAIN_BETA, TRAIN_ALPHA)
+            t["final_loss"].backward()
+            return t
+
+        terms, eval_launches, _ = count_launches(torch, kernels, eval_mode_loss)
+        evals = ({k: v.item() for k, v in terms.items()},
+                 {k: p.grad.cpu() for k, p in pipe.core.named_parameters()
+                  if p.grad is not None})
+        if device == "cuda":
+            log(f"f32 training check on the GPU: launches in the train step {train_launches}, "
+                f"in the eval-mode loss {eval_launches}")
+            expect(train_launches, {"vq_nearest": 1}, "f32 train step")
+            expect(eval_launches, {"vq_nearest": 1, "axial_slot_attention": spatial_blocks(pipe)},
+                   "f32 eval-mode loss")
+        outs[device] = {"train": train, "eval": evals}
+        if device == "cpu":  # an f64 run of the train-mode loss, to read both against
+            pipe.core.load_state_dict(weights)
+            pipe.core.double().zero_grad(set_to_none=True)
+            ids = pipe.encode_first_stage(batch["images"])
+            terms = pipe.loss_terms({**batch, "latents": ids}, posterior_noise=noise.double())
+            mt.train_loss(pipe, terms, TRAIN_BETA, TRAIN_ALPHA).backward()
+            f64 = {k: p.grad for k, p in pipe.core.named_parameters() if p.grad is not None}
+        log(f"f32 training check: {device} runs took {time.perf_counter() - t0:.1f} s")
+    against = {}
+    for device in ("cuda", "cpu"):
+        errs = {k: float((g.double() - f64[k]).abs().max() / f64[k].abs().max())
+                for k, g in outs[device]["train"][1].items() if k != shift_invariant}
+        key = max(errs, key=errs.get)
+        against[device] = (errs[key], key)
+    log(f"f32 training check against an f64 CPU run (train mode), largest gradient error of "
+        f"its tensor's max |g|: GPU {against['cuda']}, CPU {against['cpu']}")
+    for mode in ("train", "eval"):
+        (terms_g, grads_g), (terms_c, grads_c) = outs["cuda"][mode], outs["cpu"][mode]
+        term_err = {k: abs(terms_g[k] - terms_c[k]) / abs(terms_c[k]) for k in terms_c}
+        if grads_g.keys() != grads_c.keys():
+            raise AssertionError(f"{mode}: the GPU and CPU train other parameters")
+        top = max(float(g.abs().max()) for g in grads_c.values())
+        worst, worst_key = 0.0, None
+        for key, gc_ in grads_c.items():
+            gg = grads_g[key]
+            if key == shift_invariant:
+                if max(float(gg.abs().max()), float(gc_.abs().max())) > 1e-6 * top:
+                    raise AssertionError(f"{mode}: {key} has a gradient past rounding")
+                continue
+            rel = float((gg - gc_).abs().max()) / max(float(gc_.abs().max()), 1e-30)
+            if rel > worst:
+                worst, worst_key = rel, key
+        log(f"f32 GPU vs CPU training check ({mode} mode): terms {terms_c}, relative "
+            f"term errors {term_err}, largest gradient error {worst} of its tensor's "
+            f"max |g| ({worst_key}), over {len(grads_c)} tensors")
+        if max(term_err.values()) > TERM_RTOL or worst > GRAD_TOL:
+            raise AssertionError(f"{mode}: the GPU training step disagrees with the CPU")
+
+
 def main() -> int:
     import torch
 
@@ -703,7 +1098,7 @@ def main() -> int:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
 
-        t0 = time.perf_counter()
+        t_start = t0 = time.perf_counter()
         lib = _build.build(verbose=True)
         _build.library()
         log(f"built {os.path.relpath(lib, root)} in {time.perf_counter() - t0:.1f} s")
@@ -744,18 +1139,44 @@ def main() -> int:
             row["launches"] = paths.get(row["name"], mage)[row["name"]]
             row.setdefault("conv_only_ms", None)
             row.setdefault("unfused_ms", None)
+
+        # training, on torch's default precision flags (cuDNN may use TF32 for
+        # the f32 frozen encode), as a trainer gets them; f32 checks without
+        train_shapes = check_train_shapes(torch, vq, ax, tl, gen)
+        torch.backends.cudnn.allow_tf32 = True
+        t0 = time.perf_counter()
+        per_train_step, per_eval_step, _ = run_training(torch, build_pipeline, kernels, smi)
+        magep_batch = TRAIN_BATCH if time.perf_counter() - t_start < 300 else 4
+        if magep_batch != TRAIN_BATCH:
+            log(f"MAGE+ training at batch {magep_batch}: the smoke has run "
+                f"{time.perf_counter() - t_start:.0f} s")
+        run_magep_training(torch, build_pipeline, kernels, magep_batch)
+        log(f"training phases took {time.perf_counter() - t0:.1f} s")
+        torch.backends.cudnn.allow_tf32 = False
+        run_train_reference_check(torch, np, build_pipeline, kernels)
+        for row in rows:  # at the training path's shapes (vq: per train step)
+            ms_bound = train_shapes.get(row["name"])
+            row["train_ms"], row["train_bound_ms"] = ms_bound or (None, None)
+            if row["name"] == "vq_nearest":
+                row["train_launches"] = per_train_step["vq_nearest"]
+            elif ms_bound is not None:
+                row["train_launches"] = per_eval_step[
+                    "fusedblock" if row["name"] == "axial_block_fused" else "flat"][row["name"]]
+            else:
+                row["train_launches"] = 0
     except Exception:
         traceback.print_exc()
         return 1
 
     for row in rows:
         for key in ("ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err",
-                    "conv_only_ms", "unfused_ms"):
+                    "conv_only_ms", "unfused_ms", "train_ms", "train_bound_ms"):
             if row[key] is not None and not math.isfinite(row[key]):
                 print(f"chip_smoke: {row['name']} {key} = {row[key]}", file=sys.stderr)
                 return 1
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms", "conv_only_ms", "unfused_ms")
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "conv_only_ms", "unfused_ms",
+            "train_launches", "train_ms", "train_bound_ms")
     print(json.dumps({"kernels": [{k: row[k] for k in keys} for row in rows]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}),

@@ -161,6 +161,35 @@ def check_cuda(name: str, *tensors: torch.Tensor) -> None:
     dtype_code(first)
 
 
+class _PlainGradient(torch.autograd.Function):
+    """Forward by a kernel, backward through its plain version recomputed
+    on the saved inputs: the kernels' outputs carry no autograd graph of
+    their own, and the TPU kernels they port have no backward kernel."""
+
+    @staticmethod
+    def forward(ctx, kernel_fn, plain_fn, *tensors):
+        ctx.plain_fn = plain_fn
+        ctx.save_for_backward(*tensors)
+        return kernel_fn(*tensors)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        inputs = [t.detach().requires_grad_(need)
+                  for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad[2:])]
+        wanted = [t for t in inputs if t.requires_grad]
+        with torch.enable_grad():
+            grads = iter(torch.autograd.grad(ctx.plain_fn(*inputs), wanted, grad_out))
+        return (None, None, *(next(grads) if t.requires_grad else None for t in inputs))
+
+
+def launch_differentiable(kernel_fn, plain_fn, *tensors: torch.Tensor) -> torch.Tensor:
+    """``kernel_fn(*tensors)``; when autograd records and an input needs a
+    gradient, its gradient is that of ``plain_fn`` at the same inputs."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        return _PlainGradient.apply(kernel_fn, plain_fn, *tensors)
+    return kernel_fn(*tensors)
+
+
 def use_kernel(impl: str, x: torch.Tensor) -> bool:
     """``impl="auto"``: the kernel for a CUDA tensor, the plain version for a
     CPU tensor. ``impl="torch"``: the plain version on any device."""

@@ -1,17 +1,24 @@
-"""Stage-2 building blocks: attention, axial blocks, text encoder, AdaIN.
+"""Stage-2 building blocks: attention, axial blocks, text encoder, 3D-conv
+posterior blocks, AdaIN.
 
-Port of ``mage_tpu/models/layers.py`` for generation (eval mode, dropout
-off). Parameter names are the reference state-dict keys: attention keeps
-torch's packed ``in_proj_weight``/``in_proj_bias`` and ``out_proj``, the
-text encoder its ``transformer.layers.{i}`` stack, the cross-attention
-block its ``ln_q``/``ln_kv`` (applied in MAGE+ only).
+Port of ``mage_tpu/models/layers.py``. Parameter names are the reference
+state-dict keys: attention keeps torch's packed ``in_proj_weight``/
+``in_proj_bias`` and ``out_proj``, the text encoder its
+``transformer.layers.{i}`` stack, the cross-attention block its
+``ln_q``/``ln_kv`` (applied in MAGE+ only).
+
+torch's ``train()``/``eval()`` mode stands for JAX's ``train`` argument:
+dropout acts in train mode only. Each module's dropout rate defaults to 0;
+``MAGECore`` passes the config's rate.
 
 Eval-mode blocks that attend along H or W go through
 ``ops.axial_slot_attention`` between plain projections (``spatial_attn=
 "flat"``, the default) or run whole through ``ops.axial_block_fused``
-(``"fusedblock"``, JAX's ``MAGE_SPATIAL_ATTN=fusedblock``); the temporal
-blocks of the cached sampler go through ``ops.cached_slot_attention`` and
-write the new slot's K/V into the cache in place.
+(``"fusedblock"``, JAX's ``MAGE_SPATIAL_ATTN=fusedblock``); in train mode
+they run the plain layers, as JAX gates its kernels on ``not train``. The
+temporal blocks of the cached sampler go through
+``ops.cached_slot_attention`` and write the new slot's K/V into the cache in
+place.
 """
 
 from __future__ import annotations
@@ -38,15 +45,17 @@ def quick_gelu(x: torch.Tensor) -> torch.Tensor:
 class MultiHeadAttention(nn.Module):
     """Multi-head attention with an additive bias and a key-padding mask
     (True = masked), keyed like ``torch.nn.MultiheadAttention``. Inputs are
-    (..., L, D); heads split as (..., L, heads, hd)."""
+    (..., L, D); heads split as (..., L, heads, hd). ``attn_dropout`` drops
+    attention weights in train mode."""
 
-    def __init__(self, d_model: int, n_head: int):
+    def __init__(self, d_model: int, n_head: int, attn_dropout: float = 0.0):
         super().__init__()
         self.d_model = d_model
         self.n_head = n_head
         self.in_proj_weight = nn.Parameter(torch.empty(3 * d_model, d_model))
         self.in_proj_bias = nn.Parameter(torch.empty(3 * d_model))
         self.out_proj = nn.Linear(d_model, d_model)
+        self.weight_dropout = nn.Dropout(attn_dropout)
 
     def _proj(self, x: torch.Tensor, i: int) -> torch.Tensor:
         d = self.d_model
@@ -73,7 +82,7 @@ class MultiHeadAttention(nn.Module):
         if key_padding_mask is not None:
             scores = scores + torch.where(
                 key_padding_mask[:, None, None, :], NEG_INF, 0.0).to(scores.dtype)
-        w = torch.softmax(scores, dim=-1)
+        w = self.weight_dropout(torch.softmax(scores, dim=-1))
         out = torch.einsum("...hqk,...khd->...qhd", w, vh)
         return self.out_proj(out.flatten(-2))
 
@@ -96,13 +105,15 @@ class MLP(nn.Module):
 
 class AxialAttentionBlock(nn.Module):
     """Pre-LN self-attention + MLP along one axis of (B, T, H, W, C)
-    (``axial_dim``: 1 = T, 2 = H, 3 = W), eval mode. ``spatial_attn`` picks
-    the route of a call without ``attn_bias``: ``"flat"`` runs the block's
-    layers with the flat attention op between them, ``"fusedblock"`` the
-    whole block as one op on the block's own parameters."""
+    (``axial_dim``: 1 = T, 2 = H, 3 = W), with ``dropout`` on both residual
+    branches in train mode. ``spatial_attn`` picks the eval-mode route of a
+    call without ``attn_bias``: ``"flat"`` runs the block's layers with the
+    flat attention op between them, ``"fusedblock"`` the whole block as one
+    op on the block's own parameters. In train mode every call runs the
+    plain layers."""
 
     def __init__(self, d_model: int, n_head: int, axial_dim: int = 1,
-                 spatial_attn: str = "flat"):
+                 spatial_attn: str = "flat", dropout: float = 0.0):
         super().__init__()
         if spatial_attn not in SPATIAL_ATTN:
             raise ValueError(f"spatial_attn must be one of {SPATIAL_ATTN}, got {spatial_attn!r}")
@@ -113,18 +124,21 @@ class AxialAttentionBlock(nn.Module):
         self.ln_1 = nn.LayerNorm(d_model, eps=1e-5)
         self.ln_2 = nn.LayerNorm(d_model, eps=1e-5)
         self.mlp = MLP(d_model)
+        self.resid_dropout = nn.Dropout(dropout)
 
     def forward(self, x: torch.Tensor, attn_bias: Optional[torch.Tensor] = None):
         axis = self.axial_dim if self.axial_dim > 0 else self.axial_dim + x.ndim
         moved = torch.movedim(x, axis, -2)  # (..., S, C)
         shape = moved.shape
         seq = moved.reshape(-1, shape[-2], shape[-1])
-        if attn_bias is None and self.spatial_attn == "fusedblock":
+        # the ops' kernels serve eval mode only, as in JAX (dropout is off there)
+        spatial_op = attn_bias is None and not self.training
+        if spatial_op and self.spatial_attn == "fusedblock":
             out = axial_block_fused(seq, self.fused_block_params(), self.n_head,
                                     eps=self.ln_1.eps)
             return torch.movedim(out.reshape(shape), -2, axis)
         h = self.ln_1(seq)
-        if attn_bias is None:
+        if spatial_op:
             # unmasked axis: the flat (G, S, D) attention op (kernel on CUDA)
             g, s = h.shape[0], h.shape[1]
             q = self.attn.project_q(h)
@@ -133,8 +147,8 @@ class AxialAttentionBlock(nn.Module):
                 axial_slot_attention(q, k, v, self.n_head).reshape(g, s, -1))
         else:
             attn_out = self.attn(h, h, h, bias=attn_bias)
-        seq = seq + attn_out
-        seq = seq + self.mlp(self.ln_2(seq))
+        seq = seq + self.resid_dropout(attn_out)
+        seq = seq + self.resid_dropout(self.mlp(self.ln_2(seq)))
         return torch.movedim(seq.reshape(shape), -2, axis)
 
     def fused_block_params(self) -> tuple:
@@ -176,12 +190,13 @@ class AxialAttentionBlock(nn.Module):
 
 
 class CrossAttentionBlock(nn.Module):
-    """q x (k, v) cross-attention + MLP. ``pre_ln=False`` is MAGE (no LN on
-    q/kv; ``ln_q``/``ln_kv`` exist only so reference checkpoints load
-    strictly), ``pre_ln=True`` is MAGE+: ``q + attn(ln_q(q), ln_kv(k),
-    ln_kv(v))``."""
+    """q x (k, v) cross-attention + MLP, ``dropout`` on both residual
+    branches in train mode. ``pre_ln=False`` is MAGE (no LN on q/kv;
+    ``ln_q``/``ln_kv`` exist only so reference checkpoints load strictly),
+    ``pre_ln=True`` is MAGE+: ``q + attn(ln_q(q), ln_kv(k), ln_kv(v))``."""
 
-    def __init__(self, d_model: int, n_head: int, pre_ln: bool = False):
+    def __init__(self, d_model: int, n_head: int, dropout: float = 0.0,
+                 pre_ln: bool = False):
         super().__init__()
         self.pre_ln = pre_ln
         self.attn = MultiHeadAttention(d_model, n_head)
@@ -189,23 +204,26 @@ class CrossAttentionBlock(nn.Module):
         self.mlp = MLP(d_model)
         self.ln_q = nn.LayerNorm(d_model, eps=1e-5)
         self.ln_kv = nn.LayerNorm(d_model, eps=1e-5)
+        self.drop = nn.Dropout(dropout)
 
     def forward(self, q, k, v):
         if self.pre_ln:
-            x = q + self.attn(self.ln_q(q), self.ln_kv(k), self.ln_kv(v))
+            x = q + self.drop(self.attn(self.ln_q(q), self.ln_kv(k), self.ln_kv(v)))
         else:
-            x = q + self.attn(q, k, v)
-        return x + self.mlp(self.ln_2(x))
+            x = q + self.drop(self.attn(q, k, v))
+        return x + self.drop(self.mlp(self.ln_2(x)))
 
 
 class MAEncoder(nn.Module):
     """Motion-anchor encoder: ``layers`` cross-attention blocks, queries =
     first-frame tokens, keys/values = text embeddings."""
 
-    def __init__(self, layers: int = 1, d_model: int = 512, pre_ln: bool = False):
+    def __init__(self, layers: int = 1, d_model: int = 512, dropout: float = 0.0,
+                 pre_ln: bool = False):
         super().__init__()
         self.blocks = nn.ModuleList(
-            CrossAttentionBlock(d_model, d_model // 32, pre_ln) for _ in range(layers))
+            CrossAttentionBlock(d_model, d_model // 32, dropout=dropout, pre_ln=pre_ln)
+            for _ in range(layers))
 
     def forward(self, x, kv):
         for block in self.blocks:
@@ -215,20 +233,23 @@ class MAEncoder(nn.Module):
 
 class _TorchStyleEncoderLayer(nn.Module):
     """Post-LN encoder layer of ``torch.nn.TransformerEncoderLayer`` (exact
-    gelu MLP), eval mode."""
+    gelu MLP), ``dropout`` on the attention weights, both residual branches
+    and the MLP's hidden layer in train mode."""
 
-    def __init__(self, width: int, n_head: int):
+    def __init__(self, width: int, n_head: int, dropout: float = 0.0):
         super().__init__()
-        self.self_attn = MultiHeadAttention(width, n_head)
+        self.self_attn = MultiHeadAttention(width, n_head, attn_dropout=dropout)
         self.norm1 = nn.LayerNorm(width, eps=1e-5)
         self.norm2 = nn.LayerNorm(width, eps=1e-5)
         self.linear1 = nn.Linear(width, 4 * width)
         self.linear2 = nn.Linear(4 * width, width)
+        self.drop = nn.Dropout(dropout)
 
     def forward(self, x, key_padding_mask=None):
-        x = self.norm1(x + self.self_attn(x, x, x, key_padding_mask=key_padding_mask))
-        h = self.linear2(F.gelu(self.linear1(x)))
-        return self.norm2(x + h)
+        h = self.self_attn(x, x, x, key_padding_mask=key_padding_mask)
+        x = self.norm1(x + self.drop(h))
+        h = self.linear2(self.drop(F.gelu(self.linear1(x))))
+        return self.norm2(x + self.drop(h))
 
 
 class _EncoderStack(nn.Module):
@@ -238,19 +259,20 @@ class _EncoderStack(nn.Module):
 
 
 class TransformerTextEncoder(nn.Module):
-    """Token + position embeddings -> LN -> zero pad positions -> post-LN
-    encoder stack with key-padding mask -> final LN -> projection."""
+    """Token + position embeddings -> LN -> dropout -> zero pad positions ->
+    post-LN encoder stack with key-padding mask -> final LN -> projection."""
 
     def __init__(self, vocab_size: int = 30, transformer_width: int = 512,
                  transformer_layers: int = 2, output_dim: int = 512,
-                 context_length: int = 32, padding_idx: int = 0):
+                 context_length: int = 32, padding_idx: int = 0, dropout: float = 0.0):
         super().__init__()
         self.padding_idx = padding_idx
         self.token_embedding = nn.Embedding(vocab_size, transformer_width)
         self.positions = nn.Embedding(context_length, transformer_width)
         self.layer_norm = nn.LayerNorm(transformer_width, eps=1e-8)
+        self.drop = nn.Dropout(dropout)
         self.transformer = _EncoderStack(
-            _TorchStyleEncoderLayer(transformer_width, transformer_width // 32)
+            _TorchStyleEncoderLayer(transformer_width, transformer_width // 32, dropout)
             for _ in range(transformer_layers))
         self.ln_text_final = nn.LayerNorm(transformer_width, eps=1e-5)
         self.text_projection = nn.Linear(transformer_width, output_dim)
@@ -258,7 +280,7 @@ class TransformerTextEncoder(nn.Module):
     def forward(self, text: torch.Tensor) -> torch.Tensor:
         text = text.long()
         positions = torch.arange(text.shape[-1], device=text.device)[None, :]
-        x = self.layer_norm(self.token_embedding(text) + self.positions(positions))
+        x = self.drop(self.layer_norm(self.token_embedding(text) + self.positions(positions)))
         token_mask = text != self.padding_idx
         x = x * token_mask[..., None].to(x.dtype)
         # positions at or after the caption length are masked in attention
@@ -270,20 +292,35 @@ class TransformerTextEncoder(nn.Module):
 
 
 class BasicBlock3D(nn.Module):
-    """3D-conv residual block of the posterior pyramid. Generation never
-    runs it; it holds the parameters so ``conv3d.*`` loads strictly, and its
-    forward comes with training (ROADMAP A6)."""
+    """3D-conv residual block of the posterior pyramid on NCDHW input:
+    conv1 (strides ``(stride_t, stride, stride)``) -> GroupNorm(16) -> ReLU
+    -> conv2 -> GroupNorm(16), plus a strided conv + GroupNorm on the
+    residual when ``downsample``, then ReLU. Every conv is 3x3x3, padding 1,
+    no bias. JAX's ``spectral`` option (spectral-norm convs) is set by no
+    shipped config and not ported."""
 
-    def __init__(self, in_planes: int, out_planes: int):
+    def __init__(self, in_planes: int, out_planes: int, stride: int = 1,
+                 stride_t: int = 1, downsample: bool = False, spectral: bool = False):
         super().__init__()
-        self.conv1 = nn.Conv3d(in_planes, out_planes, 3, padding=1, bias=False)
+        if spectral:
+            raise NotImplementedError(
+                "spectral-norm BasicBlock3D is not ported (no shipped config sets it)")
+        strides = (stride_t, stride, stride)
+        self.conv1 = nn.Conv3d(in_planes, out_planes, 3, stride=strides, padding=1,
+                               bias=False)
         self.bn1 = nn.GroupNorm(16, out_planes, eps=1e-5)
         self.conv2 = nn.Conv3d(out_planes, out_planes, 3, padding=1, bias=False)
         self.bn2 = nn.GroupNorm(16, out_planes, eps=1e-5)
         self.downsample = nn.Sequential(
-            nn.Conv3d(in_planes, out_planes, 3, padding=1, bias=False),
+            nn.Conv3d(in_planes, out_planes, 3, stride=strides, padding=1, bias=False),
             nn.GroupNorm(16, out_planes, eps=1e-5),
-        )
+        ) if downsample else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = F.relu(self.bn1(self.conv1(x)))
+        h = self.bn2(self.conv2(h))
+        residual = x if self.downsample is None else self.downsample(x)
+        return F.relu(h + residual)
 
 
 class AdaIN2D(nn.Module):

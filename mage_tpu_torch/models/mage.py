@@ -1,29 +1,34 @@
-"""MAGE stage 2: the causal axial spatio-temporal transformer, for generation.
+"""MAGE stage 2: the causal axial spatio-temporal transformer.
 
 Port of ``mage_tpu/models/mage.py``: ``FlatAxialDecoder`` with its full
-forward and the single-slot cached decode, and ``MAGECore`` with the motion
-anchor and the two samplers, for discrete ids (MAGE, ``use_cids=True``) and
-continuous latents (MAGE+, ``use_cids=False``). ``generate`` re-runs the
-whole decoder per frame as the reference loop does; ``generate_cached``
-keeps a time-major (L, B*h*w, C) K/V cache per temporal block and decodes
-one slot per step, which is exact for discrete ids. The continuous head's
-GroupNorm normalises over every slot of the buffer in ``generate``; in
-``generate_cached`` its statistics accumulate causally over the slots
-generated so far (``head_causal``), as in the JAX package.
+forward and the single-slot cached decode, and ``MAGECore`` with the
+teacher-forced loss forward (the 3D-conv posterior pyramid, the KL and
+speed terms), the motion anchor and the two samplers, for discrete ids
+(MAGE, ``use_cids=True``) and continuous latents (MAGE+,
+``use_cids=False``). ``generate`` re-runs the whole decoder per frame as the
+reference loop does; ``generate_cached`` keeps a time-major (L, B*h*w, C)
+K/V cache per temporal block and decodes one slot per step, which is exact
+for discrete ids. The continuous head's GroupNorm normalises over every slot
+of the buffer in ``generate``; in ``generate_cached`` its statistics
+accumulate causally over the slots generated so far (``head_causal``), as in
+the JAX package. The samplers always run in eval mode; the loss forward runs
+in the module's mode (dropout in train mode).
 
 Parameter names are the reference state-dict keys (``generate_model.*``,
 ``text_encoder.*``, ``ma_encoder.*``, ``conv.0.weight`` and so on). The
-training forward, the posterior pyramid and the quantized KV cache come in
-later slices (ROADMAP A4, A6).
+quantized KV cache comes in a later slice (ROADMAP A3).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
 
 from mage_tpu_torch.models.layers import (
     NEG_INF,
@@ -42,6 +47,46 @@ def causal_temporal_bias(length: int, dtype=torch.float32, device=None) -> torch
     """Additive upper-triangular mask: -1e9 above the diagonal, 0 elsewhere."""
     return torch.triu(torch.full((length, length), NEG_INF, dtype=dtype, device=device),
                       diagonal=1)
+
+
+def standard_normal(noise: Optional[torch.Tensor], shape, like: torch.Tensor,
+                    generator: Optional[torch.Generator]) -> torch.Tensor:
+    """``noise`` if given, else a standard-normal draw of ``shape`` from
+    ``generator`` (on the generator's device), either way on ``like``'s
+    device and in its dtype."""
+    if noise is None:
+        gen_device = generator.device if generator is not None else like.device
+        noise = torch.randn(shape, generator=generator, device=gen_device, dtype=like.dtype)
+    return noise.to(device=like.device, dtype=like.dtype)
+
+
+def _in_eval_mode(sampler):
+    """Run ``sampler`` in eval mode and give the module back its mode after:
+    generation never drops out, as JAX's samplers pass ``train=False``."""
+
+    @functools.wraps(sampler)
+    def run(self, *args, **kwargs):
+        was_training = self.training
+        self.eval()
+        try:
+            return sampler(self, *args, **kwargs)
+        finally:
+            self.train(was_training)
+
+    return run
+
+
+def rematerialized(module: nn.Module, *args):
+    """``module(*args)``, its activations recomputed in the backward pass
+    (``torch.utils.checkpoint``). The parameters the module holds now go in
+    as explicit inputs: under ``functional_call`` (the train step's bf16
+    copies) they are the copies, which the recompute must see too."""
+    names, tensors = zip(*module.named_parameters())
+
+    def run(*flat):
+        return functional_call(module, dict(zip(names, flat[len(args):])), flat[:len(args)])
+
+    return checkpoint(run, *args, *tensors, use_reentrant=False)
 
 
 def causalizable_group_norm(x: torch.Tensor, norm: nn.GroupNorm,
@@ -73,22 +118,27 @@ class FlatAxialDecoder(nn.Module):
     causal. The motion anchor is pseudo-frame 0; outputs predict frames
     1..L-1: logits (``use_cids``) or continuous latents. The continuous head
     is GroupNorm -> silu -> 1x1x1 conv, keyed ``out.0`` and ``out.2``.
-    ``spatial_attn`` is every block's route for its unmasked (H and W) calls
-    (``AxialAttentionBlock``)."""
+    ``spatial_attn`` is every block's eval-mode route for its unmasked (H
+    and W) calls (``AxialAttentionBlock``). ``remat`` recomputes each block's
+    activations in the backward pass (``torch.utils.checkpoint``) in train
+    mode."""
 
     def __init__(self, in_channels: int, model_channels: int, out_channels: int,
                  frames_length: int, layers: int, context_channels: Optional[int] = None,
-                 use_cids: bool = True, spatial_attn: str = "flat"):
+                 use_cids: bool = True, spatial_attn: str = "flat", dropout: float = 0.0,
+                 remat: bool = False):
         super().__init__()
         mc = model_channels
         self.frames_length = frames_length
         self.model_channels = mc
         self.use_cids = use_cids
+        self.remat = remat
         self.in_linear = nn.Linear(in_channels, mc)
         self.context_linear = nn.Linear(context_channels or mc, mc)
         self.T_positional_embedding = nn.Parameter(torch.empty(frames_length, 1, 1, mc))
         self.blocks = nn.ModuleList(
-            AxialAttentionBlock(mc, mc // 32, axial_dim=i % 3 + 1, spatial_attn=spatial_attn)
+            AxialAttentionBlock(mc, mc // 32, axial_dim=i % 3 + 1, spatial_attn=spatial_attn,
+                                dropout=dropout)
             for i in range(layers))
         if use_cids:
             self.out = nn.Linear(mc, out_channels)
@@ -113,7 +163,11 @@ class FlatAxialDecoder(nn.Module):
         x = x + self.T_positional_embedding
         bias = causal_temporal_bias(self.frames_length, x.dtype, x.device)
         for i, block in enumerate(self.blocks):
-            x = block(x, attn_bias=bias if i % 3 == 0 else None)
+            block_bias = bias if i % 3 == 0 else None
+            if self.remat and self.training:
+                x = rematerialized(block, x, block_bias)
+            else:
+                x = block(x, attn_bias=block_bias)
         return self.head(x[:, 1:])
 
     def init_cache(self, batch: int, h: int, w: int, dtype, device) -> dict:
@@ -164,17 +218,28 @@ class FlatAxialDecoder(nn.Module):
 
 
 class MAGECore(nn.Module):
-    """The stage-2 model, eval mode: discrete MAGE (``use_cids=True``, ids
+    """All trainable stage-2 state: discrete MAGE (``use_cids=True``, ids
     embedded by ``visual_token_embedding``) or MAGE+ (continuous latents of
     ``embed_dim`` channels projected by it, with ``pre_ln`` cross-attention).
-    ``spatial_attn`` ("flat" or "fusedblock") goes to the decoder's blocks."""
+    ``spatial_attn`` ("flat" or "fusedblock") goes to the decoder's blocks.
+
+    Training fields as in JAX: ``dropout`` (the decoder's and the motion
+    anchor's; ``text_dropout`` the text encoder's), ``remat`` (recompute the
+    axial blocks and the posterior's 3D-conv blocks in the backward pass),
+    and the opt-in loss weights: ``motion_loss_weight`` scales each target
+    token's loss by 1 + weight * moved(token), ``early_loss_weight`` the
+    first ``early_loss_frames`` predicted frames' by 1 + weight, both
+    normalised to mean 1 (0 = the reference's uniform loss)."""
 
     def __init__(self, codebook_size: int, frames_length: int, image_resolution: int,
                  vision_width: int, randomness: bool = False, use_cids: bool = True,
-                 pre_ln: bool = False, embed_dim: int = 4,
+                 pre_ln: bool = False, embed_dim: int = 4, dropout: float = 0.0,
+                 remat: bool = False, motion_loss_weight: float = 0.0,
+                 early_loss_weight: float = 0.0, early_loss_frames: int = 3,
                  text_vocab_size: int = 30, text_context_length: int = 32,
                  text_width: int = 512, text_layers: int = 2, text_output_dim: int = 512,
-                 text_padding_idx: int = 0, ma_layers: int = 1, ma_d_model: int = 512,
+                 text_padding_idx: int = 0, text_dropout: float = 0.0,
+                 ma_layers: int = 1, ma_d_model: int = 512,
                  dec_layers: int = 6, dec_out_channels: int = 512,
                  spatial_attn: str = "flat"):
         super().__init__()
@@ -185,6 +250,10 @@ class MAGECore(nn.Module):
         self.randomness = randomness
         self.use_cids = use_cids
         self.pre_ln = pre_ln
+        self.remat = remat
+        self.motion_loss_weight = motion_loss_weight
+        self.early_loss_weight = early_loss_weight
+        self.early_loss_frames = early_loss_frames
         if use_cids:
             self.visual_token_embedding = nn.Embedding(codebook_size, w)
         else:
@@ -197,16 +266,18 @@ class MAGECore(nn.Module):
         self.text_encoder = TransformerTextEncoder(
             vocab_size=text_vocab_size, transformer_width=text_width,
             transformer_layers=text_layers, output_dim=text_output_dim,
-            context_length=text_context_length, padding_idx=text_padding_idx)
-        self.ma_encoder = MAEncoder(layers=ma_layers, d_model=ma_d_model, pre_ln=pre_ln)
+            context_length=text_context_length, padding_idx=text_padding_idx,
+            dropout=text_dropout)
+        self.ma_encoder = MAEncoder(layers=ma_layers, d_model=ma_d_model, dropout=dropout,
+                                    pre_ln=pre_ln)
         self.generate_model = FlatAxialDecoder(
             in_channels=w, model_channels=ma_d_model, out_channels=dec_out_channels,
             frames_length=frames_length, layers=dec_layers, context_channels=ma_d_model,
-            use_cids=use_cids, spatial_attn=spatial_attn)
+            use_cids=use_cids, spatial_attn=spatial_attn, dropout=dropout, remat=remat)
         if randomness:
-            self.conv3d = nn.ModuleList([
-                BasicBlock3D(w, w), BasicBlock3D(w, w), BasicBlock3D(w, w),
-                BasicBlock3D(w, ma_d_model)])
+            self.conv3d = nn.ModuleList(
+                BasicBlock3D(w, out, stride=1, stride_t=2, downsample=True)
+                for out in (w, w, w, ma_d_model))
             self.conv_mu2 = nn.Conv2d(ma_d_model, 64, 3, padding=1)
             self.conv_var2 = nn.Conv2d(ma_d_model, 64, 3, padding=1)
             self.conv_d2 = nn.Conv2d(64, w, 3, padding=1, bias=False)
@@ -228,6 +299,35 @@ class MAGECore(nn.Module):
         out = self.conv(frames).permute(0, 2, 3, 1).reshape(b, l, h, w, c)
         return out + self.H_positional_embedding + self.W_positional_embedding
 
+    def _early_frame_weight(self, n_frames: int, device) -> torch.Tensor:
+        """(1, n_frames, 1, 1) f32 per-frame loss multiplier: the first
+        ``early_loss_frames`` predicted frames get 1 + early_loss_weight."""
+        t = torch.arange(n_frames, device=device)
+        wf = torch.where(t < self.early_loss_frames, 1.0 + self.early_loss_weight, 1.0)
+        return wf.to(torch.float32)[None, :, None, None]
+
+    def video_posterior(self, x_emb: torch.Tensor):
+        """The 3D-conv pyramid over the whole embedded video -> (mu, logvar),
+        (B, L, h, w, C) -> two (B, h, w, 64). Each stride-2 block halves T;
+        a T left above 1 (clips longer than 16 frames) is mean-pooled. Under
+        ``remat`` in train mode each block is recomputed in the backward
+        pass."""
+        h = x_emb.permute(0, 4, 1, 2, 3)  # NCDHW view of channels-last memory
+        for block in self.conv3d:
+            if self.remat and self.training:
+                h = rematerialized(block, h)
+            else:
+                h = block(h)
+        h = h.mean(dim=2) if h.shape[2] > 1 else h.squeeze(2)
+        return (self.conv_mu2(h).permute(0, 2, 3, 1),
+                self.conv_var2(h).permute(0, 2, 3, 1))
+
+    def speed_l2(self, speed: torch.Tensor) -> torch.Tensor:
+        """The alpha regulariser: mean ||speed * speed_embedding||^2, in f32."""
+        emb = (speed.reshape(-1, 1).to(self.speed_embedding.dtype)
+               @ self.speed_embedding).float()
+        return (emb * emb).sum(dim=-1).mean()
+
     def compute_motion_anchor(self, first_tokens: torch.Tensor, text_emb: torch.Tensor,
                               video_emb: Optional[torch.Tensor],
                               speed: Optional[torch.Tensor]) -> torch.Tensor:
@@ -242,6 +342,81 @@ class MAGECore(nn.Module):
             anchor = anchor + speed_emb[:, None, None, :]
         return anchor
 
+    # ---- training forward ----------------------------------------------------
+
+    def forward(self, latents: torch.Tensor, text: torch.Tensor,
+                speed: Optional[torch.Tensor] = None, test_flag: bool = False,
+                context_latents: Optional[torch.Tensor] = None,
+                posterior_noise: Optional[torch.Tensor] = None,
+                video_noise: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> dict:
+        """Teacher-forced forward -> raw loss terms: ``prediction`` (token
+        cross-entropy for ids, MSE for continuous latents), ``kl_loss`` (the
+        stochastic branch) and ``speed_l2`` (when ``speed`` is given), each
+        reduced in f32, and ``predict``, the decoder's output. The beta and
+        alpha weighting happens in the train step.
+
+        ``posterior_noise`` (B, h, w, 64) is the posterior sample's standard
+        normal draw; ``test_flag`` samples the prior instead, from
+        ``video_noise``. What is not given is drawn from ``generator``.
+        ``context_latents`` (optional) feed the decoder's context while the
+        targets, the posterior and the motion weights stay on ``latents``."""
+        x_emb = self.embed_latents(latents)
+        b = x_emb.shape[0]
+        l1 = self.frames_length - 1
+        ctx_emb = x_emb if context_latents is None else self.embed_latents(context_latents)
+        prior_img = self.stem(ctx_emb[:, :l1])
+        first_tokens = prior_img[:, 0].reshape(b, -1, x_emb.shape[-1])
+        text_emb = self.text_encoder(text)
+
+        video_emb = mu = logvar = None
+        if self.randomness:
+            mu, logvar = self.video_posterior(x_emb)
+            eps = standard_normal(posterior_noise, logvar.shape, logvar, generator)
+            video_emb = mu + eps * torch.exp(0.5 * logvar)
+            if test_flag:  # prior sampling at test time
+                video_emb = standard_normal(video_noise, logvar.shape, logvar, generator)
+
+        anchor = self.compute_motion_anchor(first_tokens, text_emb, video_emb, speed)
+        predict = self.generate_model(anchor, prior_img)
+
+        # loss reductions run in f32 whatever the compute dtype
+        weighted = self.motion_loss_weight > 0 or self.early_loss_weight > 0
+        if self.use_cids:
+            labels = latents[:, 1:self.frames_length].long()
+            logits = predict.reshape(-1, self.codebook_size).float()
+            tok_ce = F.cross_entropy(logits, labels.reshape(-1), reduction="none")
+            if weighted:
+                w = torch.ones(labels.shape, dtype=torch.float32, device=logits.device)
+                if self.motion_loss_weight > 0:
+                    moved = (labels != latents[:, :l1].long()).float()
+                    w = w * (1.0 + self.motion_loss_weight * moved)
+                w = w * self._early_frame_weight(labels.shape[1], w.device)
+                recon = (tok_ce * (w / w.mean()).reshape(-1)).mean()
+            else:
+                recon = tok_ce.mean()
+        else:
+            target = latents[:, 1:self.frames_length].float()
+            diff = predict.float() - target
+            if weighted:
+                w = torch.ones(target.shape[:-1], dtype=torch.float32, device=target.device)
+                if self.motion_loss_weight > 0:
+                    d2 = ((target - latents[:, :l1].float()) ** 2).mean(dim=-1)
+                    w = w * (1.0 + self.motion_loss_weight * d2 / (d2.mean() + 1e-8))
+                w = w * self._early_frame_weight(target.shape[1], w.device)
+                recon = ((diff ** 2).mean(dim=-1) * (w / w.mean())).mean()
+            else:
+                recon = (diff ** 2).mean()
+
+        out = {"prediction": recon, "predict": predict}
+        if self.randomness:
+            mu_f = mu.reshape(b, -1).float()
+            logvar_f = logvar.reshape(b, -1).float()
+            out["kl_loss"] = -0.5 * (1 + logvar_f - mu_f ** 2 - torch.exp(logvar_f)).sum(1).mean()
+        if speed is not None:
+            out["speed_l2"] = self.speed_l2(speed)
+        return out
+
     def _prepare_generation(self, latents0, text, speed, video_noise, generator):
         x_emb0 = self.embed_latents(latents0)  # (B, 1, h, w, C)
         b, _, h, w, c = x_emb0.shape
@@ -249,17 +424,14 @@ class MAGECore(nn.Module):
         text_emb = self.text_encoder(text)
         video_emb = None
         if self.randomness:
-            if video_noise is None:
-                gen_device = generator.device if generator is not None else x_emb0.device
-                video_noise = torch.randn((b, h, w, 64), generator=generator,
-                                          device=gen_device, dtype=x_emb0.dtype)
-            video_emb = video_noise.to(device=x_emb0.device, dtype=x_emb0.dtype)
+            video_emb = standard_normal(video_noise, (b, h, w, 64), x_emb0, generator)
         anchor = self.compute_motion_anchor(first_tokens, text_emb, video_emb, speed)
         return x_emb0, anchor
 
     # ---- samplers ----------------------------------------------------------
 
     @torch.no_grad()
+    @_in_eval_mode
     def generate(self, latents0: torch.Tensor, text: torch.Tensor,
                  speed: Optional[torch.Tensor] = None,
                  video_noise: Optional[torch.Tensor] = None,
@@ -286,6 +458,7 @@ class MAGECore(nn.Module):
         return torch.argmax(prediction, dim=-1).to(torch.int32)
 
     @torch.no_grad()
+    @_in_eval_mode
     def generate_cached(self, latents0: torch.Tensor, text: torch.Tensor,
                         speed: Optional[torch.Tensor] = None,
                         video_noise: Optional[torch.Tensor] = None,

@@ -1,11 +1,14 @@
-"""Two-stage TI2V pipeline for generation: frozen first stage + ``MAGECore``.
+"""Two-stage TI2V pipeline: frozen first stage + ``MAGECore``.
 
 Port of ``mage_tpu/models/pipeline.py``. ``MagePipeline`` is built from the
 same YAML ``model.params`` as the JAX class and owns both stages as
 ``nn.Module``s: the VQ-VAE with discrete MAGE (``use_cids: true``) or the
 KL autoencoder with MAGE+. ``generate`` encodes the first frame (a posterior
 sample for the KL-AE), generates the latents of the remaining frames,
-decodes them and prepends the first frame.
+decodes them and prepends the first frame. ``loss_terms`` is the training
+forward: the frozen first stage encodes the clip in its own precision
+without gradients, then the core's teacher-forced forward returns the raw
+loss terms. The first stage never trains and always runs in eval mode.
 
 The entry points run on the card: ``device`` defaults to ``"cuda"`` and a
 missing GPU raises unless the caller passes ``device="cpu"``. Weights are
@@ -21,6 +24,7 @@ from typing import Any, Mapping, Optional
 
 import torch
 from torch import nn
+from torch.func import functional_call
 
 from mage_tpu_torch.config import instantiate_from_config, load_config, target_path
 from mage_tpu_torch.models.autoencoder_kl import AutoencoderKL, DiagonalGaussian
@@ -184,11 +188,16 @@ def _check_target(config: Mapping, default: type, what: str) -> None:
 
 
 class MagePipeline:
-    """First stage + ``MAGECore`` + generation glue, from the YAML schema of
-    ``config/mage_*.yaml`` and ``config/mage+_*.yaml`` (``model.params``).
-    ``spatial_attn="fusedblock"`` runs every spatial decoder block as one
-    fused op (the JAX package's ``MAGE_SPATIAL_ATTN=fusedblock``); the
-    default ``"flat"`` runs its layers around the flat attention op."""
+    """First stage + ``MAGECore`` + loss and generation glue, from the YAML
+    schema of ``config/mage_*.yaml`` and ``config/mage+_*.yaml``
+    (``model.params``). ``spatial_attn="fusedblock"`` runs every eval-mode
+    spatial decoder block as one fused op (the JAX package's
+    ``MAGE_SPATIAL_ATTN=fusedblock``); the default ``"flat"`` runs its layers
+    around the flat attention op.
+
+    The training fields are the JAX class's: ``dropout``, ``remat`` and the
+    loss weights go to the core; ``alpha``, ``beta``, ``v_kl`` (the KL
+    target) and ``auto_beta`` (the PID controller) to the train step."""
 
     def __init__(
         self,
@@ -200,17 +209,27 @@ class MagePipeline:
         frames_length: int,
         image_resolution: int,
         vision_width: int,
+        dropout: float = 0.1,
         use_cids: bool = False,
         randomness: bool = False,
+        alpha: float = 0.0,
+        beta: float = 1.0,
+        v_kl: float = 0.0,
+        auto_beta: bool = False,
+        remat: bool = False,
+        motion_loss_weight: float = 0.0,
+        early_loss_weight: float = 0.0,
+        early_loss_frames: int = 3,
         device: Optional[str | torch.device] = None,
         seed: int = 0,
         spatial_attn: str = "flat",
-        **training_params,
     ):
-        # dropout, alpha, beta, v_kl, auto_beta, remat and the loss weights
-        # configure training, which this port does not run yet
-        del training_params
         self.device = resolve_device(device)
+        self.randomness = randomness
+        self.alpha = alpha
+        self.beta = beta
+        self.v_kl = v_kl
+        self.auto_beta = auto_beta
         fs_target = target_path(str(first_stage_config.get("target", "")))
         fs_params = first_stage_config.get("params", {})
         if fs_target == f"{AutoencoderKL.__module__}.{AutoencoderKL.__name__}":
@@ -235,12 +254,18 @@ class MagePipeline:
             use_cids=use_cids,
             pre_ln=not use_cids,  # MAGE+ uses the pre-LN cross-attention
             embed_dim=getattr(self.first_stage, "embed_dim", 4),
+            dropout=dropout,
+            remat=remat,
+            motion_loss_weight=motion_loss_weight,
+            early_loss_weight=early_loss_weight,
+            early_loss_frames=early_loss_frames,
             text_vocab_size=te.get("vocab_size", 30),
             text_context_length=te.get("context_length", 32),
             text_width=te.get("transformer_width", 512),
             text_layers=te.get("transformer_layers", 2),
             text_output_dim=te.get("output_dim", 512),
             text_padding_idx=te.get("padding_idx", 0),
+            text_dropout=te.get("dropout", dropout),
             ma_layers=ma.get("layers", 1),
             ma_d_model=ma.get("d_model", 512),
             dec_layers=dec.get("layers", 6),
@@ -251,7 +276,7 @@ class MagePipeline:
         init_weights(self.first_stage.model, torch.Generator().manual_seed(seed + 1))
         self.to(self.device)
         self.core.eval()
-        self.first_stage.model.eval()
+        self.first_stage.model.eval().requires_grad_(False)
 
     # ---- state ---------------------------------------------------------------
 
@@ -284,6 +309,65 @@ class MagePipeline:
         self.core.load_state_dict(core, strict=True)
         self.first_stage.model.load_state_dict(fs, strict=True)
 
+    # ---- training forward ------------------------------------------------------
+
+    def encode_first_stage(self, images: torch.Tensor, noise=None,
+                           generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Frames (B, T, H, W, C) -> latents, in the first stage's own dtype
+        and without gradients: ids for the VQ-VAE, a posterior sample for
+        the KL-AE (its standard-normal ``noise`` drawn from ``generator``
+        when not given)."""
+        images = torch.as_tensor(images).to(device=self.device, dtype=self.first_stage.dtype)
+        if self.first_stage.is_discrete:
+            return self.first_stage.encode(images)
+        return self.first_stage.encode(images, noise, generator)
+
+    def loss_terms(self, batch: Mapping[str, Any], *, train: bool = True,
+                   test_flag: bool = False, params: Optional[Mapping[str, torch.Tensor]] = None,
+                   compute_dtype: Optional[torch.dtype] = None,
+                   generator: Optional[torch.Generator] = None,
+                   posterior_noise=None, video_noise=None, first_stage_noise=None) -> dict:
+        """-> the core's raw loss terms (f32 scalars), with the core in train
+        mode if ``train``, else in eval mode (where its kernels run).
+
+        ``batch`` carries ``text``, optional ``speed`` and
+        ``context_latents``, and either ``images`` (encoded here by the
+        frozen first stage) or precomputed ``latents``. ``params`` runs the
+        core on these tensors in place of its own (the train step's bf16
+        copies). ``compute_dtype`` casts the stage-2 inputs after the
+        encode, so the first stage's ids do not depend on it. The noise
+        arguments are ``MAGECore.forward``'s; ``first_stage_noise`` is the
+        KL-AE's posterior draw."""
+        dev = self.device
+        self.core.train(train)
+        if "latents" in batch:
+            latents = torch.as_tensor(batch["latents"]).to(dev)
+        else:
+            latents = self.encode_first_stage(batch["images"], first_stage_noise, generator)
+        speed = batch.get("speed")
+        if speed is not None:
+            speed = torch.as_tensor(speed).to(dev)
+        context = batch.get("context_latents")
+        if context is not None:
+            context = torch.as_tensor(context).to(dev)
+        if compute_dtype is not None:
+            if latents.is_floating_point():
+                latents = latents.to(compute_dtype)
+            if context is not None and context.is_floating_point():
+                context = context.to(compute_dtype)
+            if speed is not None:
+                speed = speed.to(compute_dtype)
+        args = (latents, torch.as_tensor(batch["text"]).to(dev), speed)
+        kwargs = dict(test_flag=test_flag, context_latents=context,
+                      posterior_noise=posterior_noise, video_noise=video_noise,
+                      generator=generator)
+        if params is None:
+            out = self.core(*args, **kwargs)
+        else:
+            out = functional_call(self.core, dict(params), args, kwargs)
+        out.pop("predict")
+        return out
+
     # ---- generation ------------------------------------------------------------
 
     @torch.no_grad()
@@ -308,10 +392,8 @@ class MagePipeline:
         dev = self.device
         first = torch.as_tensor(batch["images"])[:, 0:1].to(device=dev,
                                                              dtype=self.first_stage.dtype)
-        if self.first_stage.is_discrete:
-            latents0 = self.first_stage.encode(first)
-        else:
-            latents0 = self.first_stage.encode(first, posterior_noise, generator)
+        latents0 = self.encode_first_stage(first, posterior_noise, generator)
+        if latents0.is_floating_point():
             latents0 = latents0.to(self.dtype)  # the core's dtype, as the JAX bench casts
         text = torch.as_tensor(batch["text"]).to(dev)
         speed = batch.get("speed")
@@ -367,16 +449,22 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
 def build_pipeline(config_path: str | os.PathLike = "config/mage_caterv1.yaml",
                    frames_length: Optional[int] = None, *,
                    device: Optional[str | torch.device] = None,
-                   seed: int = 0, spatial_attn: str = "flat") -> MagePipeline:
+                   seed: int = 0, spatial_attn: str = "flat",
+                   dropout: Optional[float] = None) -> MagePipeline:
     """``MagePipeline`` from a YAML config with random weights from ``seed``
     and no first-stage checkpoint (its ``ckpt_path`` is dropped, as the JAX
     bench does); ``frames_length`` overrides the config's clip length and
-    ``spatial_attn`` picks the spatial blocks' route (``MagePipeline``)."""
+    ``spatial_attn`` picks the spatial blocks' route (``MagePipeline``).
+    ``dropout``, when given, replaces every stage-2 dropout rate of the
+    config (the text encoder's too)."""
     cfg = load_config(config_path)
     p = cfg.model.params
     p.first_stage_config.params.pop("ckpt_path", None)
     if frames_length is not None:
         p.frames_length = frames_length
         p.generate_decoder_config.params.frames_length = frames_length
+    if dropout is not None:
+        p.dropout = dropout
+        p.text_encoder_config.params.dropout = dropout
     return instantiate_from_config(cfg.model, merge={"device": device, "seed": seed,
                                                         "spatial_attn": spatial_attn})

@@ -13,6 +13,10 @@ blocks attend over one short axis for G independent groups.
   out-proj -> residual -> LN2 -> QuickGELU MLP -> residual, in one launch of
   ``csrc/axial_block.cu``. ``_block_plain`` rounds to x's dtype at the same
   points as the TPU kernel and is its CPU path and oracle.
+
+Both are differentiable on the kernel route: the gradient is the plain
+version's at the same inputs (``_build.launch_differentiable``), so an
+eval-mode forward that runs a kernel still trains every parameter.
 """
 
 from __future__ import annotations
@@ -73,7 +77,9 @@ def axial_slot_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          n_head: int, *, impl: str = "auto") -> torch.Tensor:
     """(G, S, D) q, k, v with heads merged in D -> (G, S, D)."""
     if _build.use_kernel(impl, q):
-        return _axial_cuda(q.contiguous(), k.contiguous(), v.contiguous(), n_head)
+        return _build.launch_differentiable(
+            lambda *qkv: _axial_cuda(*qkv, n_head), lambda *qkv: _axial_plain(*qkv, n_head),
+            q.contiguous(), k.contiguous(), v.contiguous())
     return _axial_plain(q, k, v, n_head)
 
 
@@ -168,5 +174,7 @@ def axial_block_fused(x: torch.Tensor, params, n_head: int, *, eps: float = 1e-5
     """One whole pre-LN attention + QuickGELU MLP block along S of x
     (G, S, D) -> (G, S, D); ``params`` as in ``_block_plain``."""
     if _build.use_kernel(impl, x):
-        return _block_cuda(x.contiguous(), tuple(params), n_head, eps)
+        return _build.launch_differentiable(
+            lambda y, *p: _block_cuda(y, p, n_head, eps),
+            lambda y, *p: _block_plain(y, p, n_head, eps), x.contiguous(), *params)
     return _block_plain(x, params, n_head, eps)

@@ -123,7 +123,7 @@ def test_fusedblock_axial_block_matches_jax(axial_dim, monkeypatch):
         jax.random.PRNGKey(axial_dim), jnp.asarray(x))["params"]
     want = jax.jit(lambda p, a: jb.apply({"params": p}, a, attn_bias=None, train=False))(
         params, jnp.asarray(x))
-    tb = tl.AxialAttentionBlock(D, 2, axial_dim=axial_dim, spatial_attn="fusedblock")
+    tb = tl.AxialAttentionBlock(D, 2, axial_dim=axial_dim, spatial_attn="fusedblock").eval()
     from_jax.load(tb, from_jax.export_axial_block(params))
     with torch.no_grad():
         got = tb(torch.from_numpy(x))

@@ -277,3 +277,34 @@ def test_axial_block_rejects_what_it_does_not_take(gen):
     with pytest.raises(ValueError):  # S past the limit
         ax.axial_block_fused(torch.randn(2, ax.BLOCK_MAX_S + 1, 64, generator=gen,
                                          device="cuda"), params, 2)
+
+
+@pytest.mark.parametrize("op", ["axial_slot_attention", "axial_block_fused"])
+def test_kernel_route_gradients_are_the_plain_versions(gen, op):
+    """With inputs that need gradients the kernel still runs the forward
+    (one launch) and the backward is the plain version's, so an eval-mode
+    forward on the card trains every parameter, f32."""
+    g, s, d, heads = 37, 16, 128, 4
+    if op == "axial_slot_attention":
+        inputs = [torch.randn(g, s, d, generator=gen, device="cuda") for _ in range(3)]
+        kernel = ax.KERNEL
+
+        def run(*t, impl="auto"):
+            return ax.axial_slot_attention(*t, heads, impl=impl)
+    else:
+        inputs = [torch.randn(g, s, d, generator=gen, device="cuda"),
+                  *_block_params(gen, d, torch.float32)]
+        kernel = ax.KERNEL_BLOCK
+
+        def run(x, *p, impl="auto"):
+            return ax.axial_block_fused(x, p, heads, impl=impl)
+    leaves = [t.requires_grad_() for t in inputs]
+    up = torch.randn(g, s, d, generator=gen, device="cuda")
+    before = kernel.launches
+    got_out = run(*leaves)
+    assert kernel.launches == before + 1
+    got = torch.autograd.grad((got_out * up).sum(), leaves)
+    assert kernel.launches == before + 1  # the backward launches no kernel
+    want = torch.autograd.grad((run(*leaves, impl="torch") * up).sum(), leaves)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5 * float(b.abs().max()))

@@ -196,6 +196,8 @@ def test_package_imports_with_jax_and_mage_tpu_blocked():
         "    sys.modules[name] = None\n"
         "import mage_tpu_torch, mage_tpu_torch.config, mage_tpu_torch.ops\n"
         "import mage_tpu_torch.models, mage_tpu_torch.compat.from_jax\n"
+        "import mage_tpu_torch.training.mage_trainer, mage_tpu_torch.training.autoresume\n"
+        "import mage_tpu_torch.utils.metrics, mage_tpu_torch.utils.timer\n"
         "print('ok')\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
@@ -214,5 +216,8 @@ def test_no_jax_or_mage_tpu_import_in_the_port():
     hits = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
             for f in files for m in _FORBIDDEN.finditer(f.read_text())]
     assert not hits, hits
+    package = ROOT / "mage_tpu_torch"
+    scanned = {f.relative_to(package).parts[0] for f in files if package in f.parents}
+    assert {"compat", "models", "ops", "training", "utils"} <= scanned
     assert _FORBIDDEN.search("from mage_tpu.ops import vq")
     assert not _FORBIDDEN.search("from mage_tpu_torch.ops import vq")
