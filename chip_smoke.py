@@ -35,7 +35,21 @@ fatal on failure (exit code 1; 2 when there is no GPU or no package):
    also read against an f64 CPU run). The step's TFLOP per stage
    (``torch.utils.flop_counter``) and its kernel time under
    ``torch.profiler`` are printed beside the stage split;
-9. one JSON line with every kernel's numbers, then the closing JSON line.
+9. stage-1 training (``vqvae_trainer``, ``autoencoder_kl_trainer``), f32:
+   the vq kernel at the VQ-VAE steps' shapes (4096 tokens, 512 codes, width
+   1024 and 256, with codes) against its plain version (ids equal) and its
+   bound; the f8 VQ-VAE of ``config/mage_caterv1.yaml`` and the f4 one of
+   ``config/mage_mnist.yaml`` at batch 16, each a warm-up, 3 timed train
+   steps (s/step, the forward/backward/Adam split, peak memory; 1 vq launch a
+   step), an eval step (1 launch) and a dead-code restart (2), the running
+   averages untouched by the last two; the KL-AE at
+   ``train_autoencoder_kl.py``'s defaults (batch 8), 3 timed steps launching
+   no kernel and an eval step launching gn_conv and gn_stats once per decoder
+   chain (28 each); then one train step of each VQ-VAE at batch 2 on the GPU
+   against the CPU (f32, TF32 off): loss terms within 1e-4 relative, each
+   gradient within 1e-3 of its tensor's largest |g|, running statistics
+   within 1e-5;
+10. one JSON line with every kernel's numbers, then the closing JSON line.
 """
 
 from __future__ import annotations
@@ -79,6 +93,13 @@ TRAIN_LR, TRAIN_BETA, TRAIN_ALPHA = 5e-5, 0.00025, 0.001
 TRAIN_VQ_N = TRAIN_BATCH * FRAMES * 16 * 16  # tokens of one step's frozen encode
 TRAIN_G = TRAIN_BATCH * FRAMES * 16  # groups of an eval step's spatial block
 TERM_RTOL, GRAD_TOL = 1e-4, 1e-3  # the f32 GPU-vs-CPU training check
+# stage-1 training: train_vqvae.py's batch and Adam, f32; each VQ-VAE is the
+# first stage of its config: name -> (config, frame size, channels)
+S1_BATCH, S1_STEPS, S1_LR, S1_BETA = 16, 3, 1e-4, 2.0
+S1_VQ = {"f8": ("config/mage_caterv1.yaml", 128, 3), "f4": ("config/mage_mnist.yaml", 64, 1)}
+S1_VQ_SHAPES = {"f8": (S1_BATCH * 16 * 16, 512, 1024), "f4": (S1_BATCH * 16 * 16, 512, 256)}
+KL_BATCH, KL_LR, KL_WEIGHT = 8, 4.5e-6, 1e-6  # train_autoencoder_kl.py's defaults
+F32_SPREAD = 2.0  # a GPU gradient as close to f64 as the CPU's, up to this factor
 
 
 def log(msg: str) -> None:
@@ -1064,6 +1085,283 @@ def run_train_reference_check(torch, np, build_pipeline, kernels) -> None:
             raise AssertionError(f"{mode}: the GPU training step disagrees with the CPU")
 
 
+def stage1_vqvae(torch, name: str, device: str = "cuda"):
+    """The first stage of ``S1_VQ[name]``'s config at its widths, random
+    weights from seed 0 (the JAX package's init scales), on ``device``."""
+    from mage_tpu_torch.config import load_config
+    from mage_tpu_torch.models.pipeline import FirstStageVQVAE, init_weights
+
+    params = dict(load_config(S1_VQ[name][0]).model.params.first_stage_config.params)
+    params.pop("ckpt_path", None)
+    model = FirstStageVQVAE.from_config(params).model
+    init_weights(model, torch.Generator().manual_seed(0))
+    return model.to(device)
+
+
+def running_buffers(model) -> dict:
+    return {k: v.clone() for k, v in model.state_dict().items()
+            if "running" in k or "num_batches" in k}
+
+
+def s1_stage_split(torch, model, opt, loss_fn) -> dict:
+    """Device time of a train step's forward through the loss, its backward
+    and the Adam step (CUDA events, median of 3 steps)."""
+    runs = {"forward": [], "backward": [], "optimizer": []}
+    for _ in range(3):
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        model.train()
+        opt.zero_grad(set_to_none=True)
+        events[0].record()
+        loss = loss_fn()
+        events[1].record()
+        loss.backward()
+        events[2].record()
+        opt.step()
+        events[3].record()
+        torch.cuda.synchronize()
+        for i, name in enumerate(runs):
+            runs[name].append(events[i].elapsed_time(events[i + 1]))
+    return {name: statistics.median(v) for name, v in runs.items()}
+
+
+def timed_steps(torch, kernels, step) -> tuple:
+    """``S1_STEPS`` calls of ``step()`` between two CUDA events, launch
+    counts around them -> (last result, s/step, counts, vq variants)."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+
+    def steps():
+        start.record()
+        for _ in range(S1_STEPS):
+            out = step()
+        end.record()
+        return out
+
+    out, launches, routes = count_launches(torch, kernels, steps)
+    return out, start.elapsed_time(end) / S1_STEPS / 1e3, launches, routes
+
+
+def run_vqvae_training(torch, kernels, name: str, card: str) -> dict:
+    """Stage-1 VQ-VAE training at the config's widths, f32, batch 16
+    (``train_vqvae.py``'s): a warm-up, 3 timed train steps (1 vq launch
+    each, the SIMT variant with codes), the stage split, 1 eval step (1
+    launch) and 1 dead-code restart (2 launches), the last two leaving the
+    running averages bit-equal."""
+    from mage_tpu_torch.training import vqvae_trainer as vt
+
+    config, res, channels = S1_VQ[name]
+    model = stage1_vqvae(torch, name)
+    opt = vt.make_optimizer(model, S1_LR)
+    step = vt.make_train_step(model, opt, S1_BETA)
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    images = torch.rand(S1_BATCH, res, res, channels, generator=gen, device="cuda") * 2 - 1
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    warm = {k: float(v) for k, v in step(images, S1_LR).items()}
+    terms, s_per_step, launches, routes = timed_steps(
+        torch, kernels, lambda: step(images, S1_LR))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"VQ-VAE {name} train: launches in {S1_STEPS} steps {launches}, vq variants {routes}")
+    expect(launches, {"vq_nearest": S1_STEPS}, f"VQ-VAE {name} train steps")
+    if routes != {"simt": S1_STEPS, "wgmma": 0}:
+        raise AssertionError(f"VQ-VAE {name}: the f32 vq launch did not take the SIMT variant")
+    stages = s1_stage_split(torch, model, opt,
+                            lambda: vt.loss_terms(model, images, S1_BETA)[0])
+    before = running_buffers(model)
+    evals, eval_launches, _ = count_launches(torch, kernels,
+                                             lambda: vt.make_eval_step(model)(images))
+    n_dead, restart_launches, _ = count_launches(
+        torch, kernels, lambda: vt.make_restart_dead_codes(model)(images, generator=gen))
+    log(f"VQ-VAE {name}: launches in an eval step {eval_launches}, in a restart "
+        f"{restart_launches}")
+    expect(eval_launches, {"vq_nearest": 1}, f"VQ-VAE {name} eval step")
+    expect(restart_launches, {"vq_nearest": 2}, f"VQ-VAE {name} restart")
+    after = running_buffers(model)
+    if not all(torch.equal(after[k], v) for k, v in before.items()):
+        raise AssertionError(f"VQ-VAE {name}: the eval step or restart moved the running stats")
+    values = [*warm.values(), *(float(v) for v in terms.values()),
+              *(float(v) for v in evals.values())]
+    if not all(math.isfinite(v) for v in values):
+        raise AssertionError(f"VQ-VAE {name}: non-finite loss {values}")
+    result = {"config": config, "first_stage": name, "card": card, "batch": S1_BATCH,
+              "frame": [res, res, channels], "dim": model.dim,
+              "K": model.codebook.embedding.weight.shape[0], "dtype": "float32",
+              "s_per_step": s_per_step, "stage_ms": stages, "peak_gib": peak,
+              "terms_after_warmup": warm, "terms_after_steps":
+                  {k: float(v) for k, v in terms.items()},
+              "eval_terms": {k: float(v) for k, v in evals.items()},
+              "codes_restarted": int(n_dead)}
+    log(f"VQ-VAE {name} training: " + json.dumps(result))
+    return result
+
+
+def run_klae_training(torch, kernels, card: str) -> dict:
+    """KL-AE training at ``train_autoencoder_kl.py``'s defaults (128 px, ch
+    128, ch_mult 1,2,4,4, 2 res blocks, z 4, batch 8, Adam 4.5e-6, KL weight
+    1e-6), f32: a warm-up and 3 timed steps launching no kernel (train mode
+    takes the plain chain), the stage split, and 1 eval step whose decoder
+    launches gn_conv and gn_stats once per chain (``GN_CONV_SITES``' 28)."""
+    from mage_tpu_torch.models.autoencoder_kl import AutoencoderKL
+    from mage_tpu_torch.models.pipeline import init_weights
+    from mage_tpu_torch.training import autoencoder_kl_trainer as kt
+
+    model = AutoencoderKL(embed_dim=4, ch=128, ch_mult=(1, 2, 4, 4), num_res_blocks=2,
+                          z_channels=4, resolution=RES)
+    init_weights(model, torch.Generator().manual_seed(0))
+    model.cuda()
+    opt = kt.make_optimizer(model, KL_LR)
+    step = kt.make_train_step(model, opt, KL_WEIGHT)
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    images = torch.rand(KL_BATCH, RES, RES, 3, generator=gen, device="cuda") * 2 - 1
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    warm = {k: float(v) for k, v in step(images, generator=gen).items()}
+    terms, s_per_step, launches, _ = timed_steps(torch, kernels,
+                                                 lambda: step(images, generator=gen))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"KL-AE train: launches in {S1_STEPS} steps {launches}")
+    expect(launches, {}, "KL-AE train steps")
+    stages = s1_stage_split(torch, model, opt, lambda: kt.loss_terms(
+        model, images, KL_WEIGHT, generator=gen)[0])
+    eval_step = kt.make_eval_step(model)
+    evals, eval_launches, _ = count_launches(torch, kernels,
+                                             lambda: eval_step(images, generator=gen))
+    eval_ms = time_ms(lambda: eval_step(images, generator=gen), iters=3, warmup=0)
+    chains = sum(GN_CONV_SITES.values())
+    log(f"KL-AE eval step: launches {eval_launches}")
+    expect(eval_launches, {"gn_silu_conv3x3": chains, "gn_stats": chains}, "KL-AE eval step")
+    values = [*warm.values(), *(float(v) for v in terms.values()),
+              *(float(v) for v in evals.values())]
+    if not all(math.isfinite(v) for v in values):
+        raise AssertionError(f"KL-AE: non-finite loss {values}")
+    result = {"card": card, "batch": KL_BATCH, "resolution": RES, "ch": 128,
+              "ch_mult": [1, 2, 4, 4], "dtype": "float32", "s_per_step": s_per_step,
+              "stage_ms": stages, "peak_gib": peak, "eval_step_ms": eval_ms,
+              "terms_after_warmup": warm,
+              "terms_after_steps": {k: float(v) for k, v in terms.items()},
+              "eval_terms": {k: float(v) for k, v in evals.items()}}
+    log("KL-AE training: " + json.dumps(result))
+    return result
+
+
+def check_stage1_vq(torch, vq, gen) -> dict:
+    """The vq kernel at the stage-1 steps' shapes, f32 with codes (the SIMT
+    variant): ids equal the plain version's, codes the rows of the ids;
+    device time (CUDA-graph replays) beside the plain version's and the
+    bound (f32 operations on the CUDA cores)."""
+    out = {}
+    for name, (n, k, d) in S1_VQ_SHAPES.items():
+        z = torch.relu(torch.randn(n, d, generator=gen, device="cuda"))
+        cb = torch.randn(k, d, generator=gen, device="cuda") * 0.5
+        before = dict(vq.ROUTE_LAUNCHES)
+        idx, codes = vq.nearest_with_codes(z, cb)
+        ref, _ = vq.nearest_with_codes(z, cb, impl="torch")
+        torch.cuda.synchronize()
+        if vq.ROUTE_LAUNCHES["simt"] != before["simt"] + 1:
+            raise AssertionError(f"vq at {(n, k, d)}: not the SIMT variant")
+        mismatch = int((idx != ref).sum())
+        if mismatch or not torch.equal(codes, cb[idx.long()]):
+            raise AssertionError(f"vq at {(n, k, d)}: {mismatch} ids differ from plain, or "
+                                 "codes are not the rows of the ids")
+        bnd, by = bound_ms(2 * n * d * 4 + k * d * 4 + n * 4, 2.0 * n * k * d)
+        out[name] = {"shape": [n, k, d],
+                     "ms": graph_ms(torch, lambda: vq.nearest_with_codes(z, cb)),
+                     "plain_ms": graph_ms(torch, lambda: vq.nearest_with_codes(
+                         z, cb, impl="torch"), iters=5),
+                     "bound_ms": bnd, "bound_by": by}
+    log("vq at the stage-1 shapes (f32 with codes, device ms): " + json.dumps(out))
+    return out
+
+
+def shift_invariant_biases(model) -> set:
+    """The biases of convs that feed a BatchNorm directly: it subtracts the
+    shift they add, so their gradient is rounding noise."""
+    from torch import nn
+
+    keys = set()
+    for name, mod in model.named_modules():
+        if isinstance(mod, nn.Sequential):
+            for i in range(len(mod) - 1):
+                if isinstance(mod[i + 1], nn.BatchNorm2d) and mod[i].bias is not None:
+                    keys.add(f"{name}.{i}.bias")
+    return keys
+
+
+def run_stage1_reference_check(torch, kernels) -> dict:
+    """f32, TF32 off, batch 2 of 64-px frames, each VQ-VAE at its config's
+    widths: one train step on the GPU (the vq kernel) against the CPU
+    (plain version), both read against an f64 CPU step on the same weights.
+    Loss terms within 1e-4 relative and the running statistics within 1e-5;
+    every gradient within 1e-3 of its tensor's largest |g|, except where the
+    f32 CPU step is itself further than that from the f64 one (f32 cannot
+    settle the tensor at that level): there the GPU step must be no further
+    from the f64 step than ``F32_SPREAD`` times the CPU's distance. The
+    biases ``shift_invariant_biases`` names are held below 1e-5 of the
+    model's largest gradient instead. The f32 steps are also run with the
+    convolution libraries off (cuDNN on the GPU, oneDNN on the CPU) and
+    read against f64, which shows where each library's summation order
+    settles an ill-conditioned gradient."""
+    from mage_tpu_torch.training import vqvae_trainer as vt
+
+    out = {}
+    for name in ("f4", "f8"):
+        channels = S1_VQ[name][2]
+        images = torch.rand(2, 64, 64, channels, generator=torch.Generator().manual_seed(13))
+        images = images * 2 - 1
+        runs = {}
+        for label, device, dtype, libraries in (
+                ("gpu", "cuda", torch.float32, True), ("cpu", "cpu", torch.float32, True),
+                ("f64", "cpu", torch.float64, True),
+                ("gpu_without_cudnn", "cuda", torch.float32, False),
+                ("cpu_without_onednn", "cpu", torch.float32, False)):
+            model = stage1_vqvae(torch, name, device).to(dtype)
+            step = vt.make_train_step(model, vt.make_optimizer(model, S1_LR), S1_BETA)
+            with torch.backends.cudnn.flags(enabled=libraries, allow_tf32=False), \
+                    torch.backends.mkldnn.flags(enabled=libraries):
+                terms, launches, _ = count_launches(
+                    torch, kernels, lambda: step(images.to(device, dtype), S1_LR))
+            if device == "cuda":
+                expect(launches, {"vq_nearest": 1}, f"VQ-VAE {name} f32 check step")
+            runs[label] = (
+                {k: float(v) for k, v in terms.items()},
+                {k: p.grad.cpu().double() for k, p in model.named_parameters()},
+                {k: v.cpu().double() for k, v in running_buffers(model).items()
+                 if "running" in k})
+        gpu, cpu, f64 = runs["gpu"], runs["cpu"], runs["f64"]
+        term_err = max(abs(gpu[0][k] - cpu[0][k]) / abs(cpu[0][k]) for k in cpu[0])
+        stat_err = max((float(((gpu[2][k] - v).abs() / v.abs().clamp(min=1.0)).max())
+                        for k, v in cpu[2].items()), default=0.0)
+        top = max(float(g.abs().max()) for g in cpu[1].values())
+        invariant = shift_invariant_biases(model)
+
+        def rel(a, b):
+            return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+        rows, failed = {}, []
+        for key, g_cpu in cpu[1].items():
+            g_gpu, g_f64 = gpu[1][key], f64[1][key]
+            if key in invariant:
+                if max(float(g_gpu.abs().max()), float(g_cpu.abs().max())) > 1e-5 * top:
+                    failed.append(key)
+                continue
+            rows[key] = (rel(g_gpu, g_cpu), rel(g_cpu, g_f64), rel(g_gpu, g_f64))
+            direct, cpu_f64, gpu_f64 = rows[key]
+            if direct > GRAD_TOL and (cpu_f64 <= GRAD_TOL or gpu_f64 > F32_SPREAD * cpu_f64):
+                failed.append(key)
+        worst = {label: max(((r[i], k) for k, r in rows.items()))
+                 for i, label in enumerate(("gpu_vs_cpu", "cpu_vs_f64", "gpu_vs_f64"))}
+        for label in ("gpu_without_cudnn", "cpu_without_onednn"):
+            worst[f"{label}_vs_f64"] = max((rel(runs[label][1][k], f64[1][k]), k) for k in rows)
+        unsettled = sorted(k for k, r in rows.items() if r[1] > GRAD_TOL)
+        out[name] = {"terms": cpu[0], "term_rel_err": term_err, "stat_err": stat_err,
+                     "worst_grad_err": worst, "tensors": len(rows),
+                     "shift_invariant": len(invariant), "unsettled_by_f32": len(unsettled),
+                     "failed": failed}
+        log(f"VQ-VAE {name} f32 GPU vs CPU train step: " + json.dumps(out[name]))
+        if term_err > TERM_RTOL or stat_err > 1e-5 or failed:
+            raise AssertionError(f"VQ-VAE {name}: the GPU train step disagrees with the CPU")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1152,8 +1450,26 @@ def main() -> int:
                 f"{time.perf_counter() - t_start:.0f} s")
         run_magep_training(torch, build_pipeline, kernels, magep_batch)
         log(f"training phases took {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        stage1_vq = check_stage1_vq(torch, vq, gen)
+        for name in ("f8", "f4"):
+            run_vqvae_training(torch, kernels, name, smi)
+        run_klae_training(torch, kernels, smi)
+        log(f"stage-1 training phases took {time.perf_counter() - t0:.1f} s")
         torch.backends.cudnn.allow_tf32 = False
         run_train_reference_check(torch, np, build_pipeline, kernels)
+        t0 = time.perf_counter()
+        run_stage1_reference_check(torch, kernels)
+        log(f"stage-1 f32 GPU-vs-CPU check took {time.perf_counter() - t0:.1f} s")
+        chains = sum(GN_CONV_SITES.values())
+        for row in rows:  # per stage-1 train step and eval step (VQ-VAE; KL-AE for gn)
+            row["stage1_launches"] = 1 if row["name"] == "vq_nearest" else 0
+            row["stage1_eval_launches"] = {"vq_nearest": 1, "gn_silu_conv3x3": chains,
+                                           "gn_stats": chains}.get(row["name"], 0)
+            for name, numbers in stage1_vq.items():
+                for key in ("ms", "plain_ms", "bound_ms"):
+                    row[f"stage1_{name}_{key}"] = (numbers[key] if row["name"] == "vq_nearest"
+                                                   else None)
         for row in rows:  # at the training path's shapes (vq: per train step)
             ms_bound = train_shapes.get(row["name"])
             row["train_ms"], row["train_bound_ms"] = ms_bound or (None, None)
@@ -1168,15 +1484,18 @@ def main() -> int:
         traceback.print_exc()
         return 1
 
+    stage1_keys = tuple(f"stage1_{name}_{key}" for name in S1_VQ_SHAPES
+                        for key in ("ms", "plain_ms", "bound_ms"))
     for row in rows:
         for key in ("ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err",
-                    "conv_only_ms", "unfused_ms", "train_ms", "train_bound_ms"):
+                    "conv_only_ms", "unfused_ms", "train_ms", "train_bound_ms", *stage1_keys):
             if row[key] is not None and not math.isfinite(row[key]):
                 print(f"chip_smoke: {row['name']} {key} = {row[key]}", file=sys.stderr)
                 return 1
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "conv_only_ms", "unfused_ms",
-            "train_launches", "train_ms", "train_bound_ms")
+            "train_launches", "train_ms", "train_bound_ms", "stage1_launches",
+            "stage1_eval_launches", *stage1_keys)
     print(json.dumps({"kernels": [{k: row[k] for k in keys} for row in rows]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}),

@@ -4,8 +4,9 @@ The port's own numpy-only copy of the JAX package's export logic
 (``mage_tpu/compat/torch_export.py``): JAX parameter trees, given as nested
 dicts of numpy arrays, become state dicts in the reference PyTorch layout,
 which is the layout of the port's modules (NHWC flax kernels -> NCHW torch,
-DenseGeneral q/k/v -> packed ``in_proj``, and so on). It covers the f8
-VQ-VAE, ``MAGECore`` for MAGE (``use_cids=True``, ``pre_ln=False``, whose
+DenseGeneral q/k/v -> packed ``in_proj``, flax BatchNorm statistics ->
+running buffers, and so on). It covers the f4 and f8 VQ-VAE, ``MAGECore``
+for MAGE (``use_cids=True``, ``pre_ln=False``, whose
 ``ln_q``/``ln_kv`` are emitted as identity) and MAGE+ (``use_cids=False``,
 ``pre_ln=True``: the continuous head, the latent projection and real
 ``ln_q``/``ln_kv``), and the KL autoencoder (``export_autoencoder_kl``, to the
@@ -37,6 +38,11 @@ def conv3d_weight(kernel) -> np.ndarray:
     return _np(kernel).transpose(4, 3, 0, 1, 2)
 
 
+def convtranspose2d_weight(kernel) -> np.ndarray:
+    """(kH, kW, O, I) of a flax ``transpose_kernel=True`` kernel -> (I, O, kH, kW)."""
+    return _np(kernel).transpose(3, 2, 0, 1)
+
+
 def linear_weight(kernel) -> np.ndarray:
     """(I, O) -> (O, I)."""
     return _np(kernel).T
@@ -65,7 +71,8 @@ def to_torch(sd: Mapping[str, np.ndarray]) -> dict:
 
 
 def _put_conv(sd, prefix, params, kind="conv2d"):
-    fn = {"conv2d": conv2d_weight, "linear": linear_weight}[kind]
+    fn = {"conv2d": conv2d_weight, "convT": convtranspose2d_weight,
+          "linear": linear_weight}[kind]
     sd[f"{prefix}.weight"] = fn(params["kernel"])
     if "bias" in params:
         sd[f"{prefix}.bias"] = _np(params["bias"])
@@ -80,18 +87,48 @@ def _put_bottleneck(sd, prefix, params, has_id_path):
         _put_conv(sd, f"{prefix}.block.{t}", conv)
 
 
-def export_vqvae(variables: Mapping[str, Any]) -> dict:
-    """{params, ...} of an f8 ``VectorQuantizedVAE`` -> reference state dict
-    (the f4 variant waits for ROADMAP A2)."""
+def _put_bn(sd, prefix, params, stats):
+    sd[f"{prefix}.weight"] = _np(params["scale"])
+    sd[f"{prefix}.bias"] = _np(params["bias"])
+    sd[f"{prefix}.running_mean"] = _np(stats["mean"])
+    sd[f"{prefix}.running_var"] = _np(stats["var"])
+    sd[f"{prefix}.num_batches_tracked"] = np.asarray(0, np.int64)
+
+
+def _put_resblock(sd, prefix, params, stats):
+    _put_conv(sd, f"{prefix}.block.1", params["Conv_0"])
+    _put_bn(sd, f"{prefix}.block.2", params["BatchNorm_0"], stats["BatchNorm_0"])
+    _put_conv(sd, f"{prefix}.block.4", params["Conv_1"])
+    _put_bn(sd, f"{prefix}.block.5", params["BatchNorm_1"], stats["BatchNorm_1"])
+
+
+def export_vqvae(variables: Mapping[str, Any], down_ratio: int) -> dict:
+    """{params, batch_stats} of a ``VectorQuantizedVAE`` with this
+    ``down_ratio`` (4 or 8) -> reference state dict."""
     params = variables["params"]
     enc, dec = params["encoder"], params["decoder"]
     sd: dict = {"codebook.embedding.weight": _np(params["codebook"])}
-    _put_conv(sd, "encoder.0", enc["Conv_0"])
-    for i, (t, chg) in enumerate(zip((1, 3, 5, 7), (False, False, True, True))):
-        _put_bottleneck(sd, f"encoder.{t}", enc[f"EncoderBlock_{i}"], chg)
-    for i, (t, chg) in enumerate(zip((0, 2, 4, 6), (True, True, False, False))):
-        _put_bottleneck(sd, f"decoder.{t}", dec[f"DecoderBlock_{i}"], chg)
-    _put_conv(sd, "decoder.8", dec["Conv_0"])
+    if down_ratio == 4:
+        stats = variables["batch_stats"]
+        enc_s, dec_s = stats["encoder"], stats["decoder"]
+        _put_conv(sd, "encoder.0", enc["Conv_0"])
+        _put_bn(sd, "encoder.1", enc["BatchNorm_0"], enc_s["BatchNorm_0"])
+        _put_conv(sd, "encoder.3", enc["Conv_1"])
+        for side, p, s, first in (("encoder", enc, enc_s, 4), ("decoder", dec, dec_s, 0)):
+            for i in range(2):
+                _put_resblock(sd, f"{side}.{first + i}", p[f"ResBlock_{i}"], s[f"ResBlock_{i}"])
+        _put_conv(sd, "decoder.3", dec["ConvTranspose_0"], "convT")
+        _put_bn(sd, "decoder.4", dec["BatchNorm_0"], dec_s["BatchNorm_0"])
+        _put_conv(sd, "decoder.6", dec["ConvTranspose_1"], "convT")
+    elif down_ratio == 8:
+        _put_conv(sd, "encoder.0", enc["Conv_0"])
+        for i, (t, chg) in enumerate(zip((1, 3, 5, 7), (False, False, True, True))):
+            _put_bottleneck(sd, f"encoder.{t}", enc[f"EncoderBlock_{i}"], chg)
+        for i, (t, chg) in enumerate(zip((0, 2, 4, 6), (True, True, False, False))):
+            _put_bottleneck(sd, f"decoder.{t}", dec[f"DecoderBlock_{i}"], chg)
+        _put_conv(sd, "decoder.8", dec["Conv_0"])
+    else:
+        raise ValueError(f"unsupported down_ratio {down_ratio}")
     return sd
 
 
@@ -301,11 +338,15 @@ def load_pipeline(pipeline, params: Mapping[str, Any], fs_variables: Mapping[str
     """Strict-load a JAX ``MagePipeline``'s core params and first-stage
     variables (VQ-VAE or KL-AE, by the port's first-stage type) into the
     port's ``MagePipeline``."""
-    export_fs = export_vqvae if pipeline.first_stage.is_discrete else export_autoencoder_kl
+    fs_model = pipeline.first_stage.model
+    if pipeline.first_stage.is_discrete:
+        first_stage = export_vqvae(fs_variables, fs_model.down_ratio)
+    else:
+        first_stage = export_autoencoder_kl(fs_variables)
     core = pipeline.core
     sd = export_mage_core(params, randomness=core.randomness, text_layers=text_layers,
                           ma_layers=ma_layers, dec_layers=dec_layers,
                           use_cids=core.use_cids, pre_ln=core.pre_ln,
-                          first_stage=export_fs(fs_variables))
+                          first_stage=first_stage)
     pipeline.load_state_dict(to_torch(sd))
     return pipeline

@@ -1,4 +1,4 @@
-"""KL-regularised autoencoder: the MAGE+ first stage, for generation.
+"""KL-regularised autoencoder: the MAGE+ first stage.
 
 Port of ``mage_tpu/models/autoencoder_kl.py`` (the ldm ``AutoencoderKL``):
 a ResNet encoder and decoder with GroupNorm + SiLU, a mid attention block,
@@ -9,7 +9,9 @@ memory), 1x1 convs as linear maps over the channel axis.
 At inference every decoder ``ResnetBlock`` sends both of its
 ``GroupNorm -> silu -> conv3x3`` chains through ``ops.gn_silu_conv3x3``
 (the hand-written kernel on a CUDA tensor). The encoder, and any block in
-train mode, keep the plain ``nn.GroupNorm -> silu -> nn.Conv2d`` chain.
+train mode, keep the plain ``nn.GroupNorm -> silu -> nn.Conv2d`` chain, so
+the training ``forward`` (``training/autoencoder_kl_trainer.py``) launches
+no kernel.
 
 The decoder's ``conv3x3(nearest_up2(x))`` is the JAX package's default
 ``MAGE_KL_UP=dilated`` form: the upsample folded into one 4x4 transposed
@@ -290,3 +292,11 @@ class AutoencoderKL(nn.Module):
     def decode(self, z: torch.Tensor) -> torch.Tensor:
         """(B, h, w, z) latents -> (B, H, W, C) frames."""
         return self.decoder(_pointwise(self.post_quant_conv, z))
+
+    def forward(self, x: torch.Tensor, noise: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None):
+        """(B, H, W, C) frames -> (reconstruction, posterior), as the JAX
+        ``__call__``: the decode of one posterior sample, whose standard-normal
+        ``noise`` (B, h, w, z) is drawn from ``generator`` when not given."""
+        posterior = DiagonalGaussian(self.encode_moments(x))
+        return self.decode(posterior.sample(noise, generator)), posterior

@@ -66,7 +66,10 @@ KL_FRAME_CHUNK = 96
 
 
 class FirstStageVQVAE:
-    """Frozen VQ-VAE wrapper: video-batched encode/decode."""
+    """Frozen VQ-VAE wrapper: video-batched encode/decode. ``ckpt_path``
+    names a reference VQ-VAE state dict saved with ``torch.save``, or a
+    checkpoint of the port's ``VQVAETrainer`` (its model under
+    ``state_dict``)."""
 
     is_discrete = True
 
@@ -79,9 +82,8 @@ class FirstStageVQVAE:
         ckpt_path = p.pop("ckpt_path", None)
         model = VectorQuantizedVAE(**p)
         if ckpt_path:
-            # a reference-layout VQ-VAE state dict saved with torch.save
-            model.load_state_dict(torch.load(ckpt_path, map_location="cpu",
-                                             weights_only=True), strict=True)
+            sd = torch.load(ckpt_path, map_location="cpu", weights_only=True)
+            model.load_state_dict(sd.get("state_dict", sd), strict=True)
         return cls(model)
 
     @property
@@ -416,7 +418,8 @@ class MagePipeline:
 
 def init_weights(module: nn.Module, generator: torch.Generator) -> None:
     """Random weights at the JAX package's init scales, drawn from
-    ``generator``: unit norms and zero biases, Xavier-uniform convs, the
+    ``generator``: unit norms and zero biases, Xavier-uniform convs and
+    transposed convs, the
     VQ codebook U(-1/K, 1/K), width^-0.5 positional and speed embeddings,
     normal(0.02) for everything else. The continuous head's 1x1x1 conv
     (``generate_model.out.2``) starts at zero, as in the JAX package (the
@@ -431,11 +434,11 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
     with torch.no_grad():
         for mname, m in module.named_modules():
             for leaf, p in m.named_parameters(recurse=False):
-                if isinstance(m, (nn.LayerNorm, nn.GroupNorm)):
+                if isinstance(m, (nn.LayerNorm, nn.GroupNorm, nn.BatchNorm2d)):
                     p.fill_(1.0 if leaf == "weight" else 0.0)
                 elif leaf.endswith("bias") or mname.endswith("generate_model.out.2"):
                     p.zero_()
-                elif isinstance(m, (nn.Conv2d, nn.Conv3d)):
+                elif isinstance(m, (nn.Conv2d, nn.Conv3d, nn.ConvTranspose2d)):
                     fans = (p.shape[0] + p.shape[1]) * math.prod(p.shape[2:])
                     uniform_(p, math.sqrt(6.0 / fans))
                 elif mname.endswith("codebook.embedding"):

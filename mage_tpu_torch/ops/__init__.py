@@ -5,4 +5,5 @@ from mage_tpu_torch.ops.vq import (
     codebook_lookup,
     nearest_codebook_indices,
     nearest_with_codes,
+    vq_straight_through,
 )

@@ -17,7 +17,13 @@ launches it without a codes buffer, so it writes ids only;
 point and one launch count (``KERNEL``); ``ROUTE_LAUNCHES`` counts the
 launches of each variant.
 
-The straight-through gradient (``vq_straight_through``) comes with training.
+``vq_straight_through`` is the VQ-VAE training forward's quantizer, a
+``torch.autograd.Function`` over ``nearest_with_codes`` (the kernel with
+codes on a CUDA tensor, the SIMT variant in f32; ``_vq_plain`` on the CPU).
+Its backward is plain PyTorch, as the JAX package's ``custom_vjp`` backward
+is XLA: the gradient of the codes passes to ``z`` unchanged and is
+``index_add_``ed into the chosen codebook rows. The kernel's outputs reach
+autograd only through this Function.
 """
 
 from __future__ import annotations
@@ -98,6 +104,37 @@ def nearest_codebook_indices(z: torch.Tensor, codebook: torch.Tensor, *,
     """Nearest-neighbour codebook ids for ``z``: (..., D) -> (...,) int32.
     The kernel writes no codes for it."""
     return _nearest(z, codebook, impl, with_codes=False)[0].reshape(z.shape[:-1])
+
+
+class _StraightThrough(torch.autograd.Function):
+    """Forward: the exact codes and their ids. Backward: ``grad_z`` is the
+    codes' gradient, ``grad_codebook`` its scatter-add into the rows of the
+    ids (``_vq_st_bwd`` in the JAX package)."""
+
+    @staticmethod
+    def forward(ctx, z, codebook, impl):
+        idx, codes = _nearest(z, codebook, impl, with_codes=True)
+        ctx.save_for_backward(idx)
+        ctx.k = codebook.shape[0]
+        ctx.mark_non_differentiable(idx)
+        return codes.reshape(z.shape), idx.reshape(z.shape[:-1])
+
+    @staticmethod
+    def backward(ctx, g_codes, _g_idx):
+        (idx,) = ctx.saved_tensors
+        g_codebook = None
+        if ctx.needs_input_grad[1]:
+            d = g_codes.shape[-1]
+            g_codebook = g_codes.new_zeros(ctx.k, d).index_add_(0, idx, g_codes.reshape(-1, d))
+        return g_codes, g_codebook, None
+
+
+def vq_straight_through(z: torch.Tensor, codebook: torch.Tensor, *, impl: str = "auto"):
+    """Quantize with straight-through gradients: (..., D) tokens ->
+    ((..., D) codes, (...,) int32 ids). The codes are the codebook rows
+    themselves, not ``z + (codes - z).detach()``; the ids carry no gradient.
+    Pass ``codebook.detach()`` for the reference's detached-codebook call."""
+    return _StraightThrough.apply(z, codebook, impl)
 
 
 def codebook_lookup(codebook: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

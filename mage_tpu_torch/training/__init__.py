@@ -1,2 +1,3 @@
-"""Stage-2 training: the learning-rate schedules, the auto-beta PID
-controller, checkpoints, and the MAGE train step and trainer."""
+"""Training: stage 1 (the VQ-VAE and KL-autoencoder trainers) and stage 2
+(the learning-rate schedules, the auto-beta PID controller, checkpoints, and
+the MAGE train step and trainer)."""

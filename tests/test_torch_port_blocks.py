@@ -127,7 +127,7 @@ def vqvae_pair():
     variables = jax.jit(lambda key: jm.init(key, jnp.zeros((1, 64, 64, 3)), train=True))(
         jax.random.PRNGKey(3))
     tm = VectorQuantizedVAE(input_dim=3, down_ratio=8, dim=8, K=16)
-    from_jax.load(tm, from_jax.export_vqvae(variables))
+    from_jax.load(tm, from_jax.export_vqvae(variables, 8))
     return jm, variables, tm
 
 
@@ -145,7 +145,7 @@ def test_vqvae_encode_ids_and_decode_pixels(vqvae_pair):
 
 def test_carrier_matches_jax_exporter_vqvae(vqvae_pair):
     _, variables, _ = vqvae_pair
-    _assert_same_state(from_jax.export_vqvae(variables),
+    _assert_same_state(from_jax.export_vqvae(variables, 8),
                        torch_export.export_vqvae(variables, down_ratio=8))
 
 

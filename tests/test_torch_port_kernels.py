@@ -308,3 +308,29 @@ def test_kernel_route_gradients_are_the_plain_versions(gen, op):
     want = torch.autograd.grad((run(*leaves, impl="torch") * up).sum(), leaves)
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5 * float(b.abs().max()))
+
+
+@pytest.mark.parametrize("n,k,d", [(1000, 100, 72), (4096, 512, 256)])
+def test_straight_through_gradients_on_the_card_equal_the_cpus(gen, n, k, d):
+    """The VQ-VAE training forward's quantizer in f32 (the kernel's SIMT
+    variant with codes; (4096, 512, 256) is the f4 step's shape): one launch
+    forward and none backward; codes and ids equal the CPU's, the z gradient
+    is the codes' gradient exactly, and the codebook gradient (the
+    straight-through scatter plus an attached lookup's) equals the CPU's up to
+    the order of its sums."""
+    z = torch.randn(n, d, generator=gen, device="cuda")
+    cb = torch.randn(k, d, generator=gen, device="cuda")
+    up = torch.randn(n, d, generator=gen, device="cuda")
+    out = {}
+    for dev in ("cuda", "cpu"):
+        zl, cbl = z.to(dev).requires_grad_(), cb.to(dev).requires_grad_()
+        before = vq.KERNEL.launches
+        codes, idx = vq.vq_straight_through(zl, cbl)
+        loss = (codes * up.to(dev)).sum() + (vq.codebook_lookup(cbl, idx) ** 2).sum()
+        grads = torch.autograd.grad(loss, (zl, cbl))
+        assert vq.KERNEL.launches == before + (dev == "cuda")
+        out[dev] = [t.detach().cpu() for t in (codes, idx, *grads)]
+    (codes, idx, gz, gcb), (codes_c, idx_c, gz_c, gcb_c) = out["cuda"], out["cpu"]
+    assert torch.equal(idx, idx_c) and torch.equal(codes, codes_c)
+    assert torch.equal(gz, gz_c)
+    torch.testing.assert_close(gcb, gcb_c, rtol=1e-5, atol=1e-5 * float(gcb_c.abs().max()))

@@ -197,6 +197,8 @@ def test_package_imports_with_jax_and_mage_tpu_blocked():
         "import mage_tpu_torch, mage_tpu_torch.config, mage_tpu_torch.ops\n"
         "import mage_tpu_torch.models, mage_tpu_torch.compat.from_jax\n"
         "import mage_tpu_torch.training.mage_trainer, mage_tpu_torch.training.autoresume\n"
+        "import mage_tpu_torch.training.vqvae_trainer\n"
+        "import mage_tpu_torch.training.autoencoder_kl_trainer\n"
         "import mage_tpu_torch.utils.metrics, mage_tpu_torch.utils.timer\n"
         "print('ok')\n"
     )
