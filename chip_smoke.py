@@ -49,7 +49,18 @@ fatal on failure (exit code 1; 2 when there is no GPU or no package):
    against the CPU (f32, TF32 off): loss terms within 1e-4 relative, each
    gradient within 1e-3 of its tensor's largest |g|, running statistics
    within 1e-5;
-10. one JSON line with every kernel's numbers, then the closing JSON line.
+10. the cli phase: the README's Moving-MNIST chains through the port's
+    entry points (``mage_tpu_torch.cli``), called in process in a temporary
+    directory: the generator writes 64 + 16 clips, ``device_data.
+    compose_frames`` renders them bit-equal on the card, on the CPU and in
+    the records; ``train_vqvae`` (f4, 1 epoch), ``main_mage`` train on
+    ``config/mage_mnist.yaml`` at full width (1 epoch of 4 steps, batch 16)
+    and test (2 items in f32, held to the CPU's ids on the same weights,
+    then in bf16); ``train_autoencoder_kl`` (64 px, ch 64) and ``main_mage``
+    train and test on ``config/mage+_mnist.yaml``. Each run's launches are
+    asserted, and a line gives its wall seconds, steps, s/step by CUDA
+    events, loader wait per batch and peak memory;
+11. one JSON line with every kernel's numbers, then the closing JSON line.
 """
 
 from __future__ import annotations
@@ -1362,6 +1373,332 @@ def run_stage1_reference_check(torch, kernels) -> dict:
     return out
 
 
+# ---- the cli phase -------------------------------------------------------------
+
+# the README's Moving-MNIST chains through the port's entry points: 64 train
+# and 16 test clips, so one epoch is 4 steps at the configs' batch 16
+CLI_TRAIN, CLI_VAL, CLI_BATCH = 64, 16, 16
+CLI_STEPS = CLI_TRAIN // CLI_BATCH
+CLI_KL_BATCH = 8  # train_autoencoder_kl's default batch
+
+
+class CliProbe:
+    """Instrumentation of the cli phase, patched in for its duration: CUDA
+    events around every train step (``make_train_step``,
+    ``make_mage_train_step``) and ``MagePipeline.generate`` call, the host
+    time the main thread waited on a loader for the batch that call took,
+    and the inputs and ids of each ``MAGECore.generate_cached`` call."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self._undo = []
+        self.reset()
+
+    def reset(self) -> None:
+        self.steps = []  # (start event, end event, loader wait s or None)
+        self.videos = []  # generate's outputs
+        self.cached = []  # generate_cached's inputs, generator state and ids
+        self._wait = None
+
+    def _patch(self, owner, name, wrap) -> None:
+        old = getattr(owner, name)
+        self._undo.append((owner, name, old))
+        setattr(owner, name, wrap(old))
+
+    def __enter__(self) -> "CliProbe":
+        import threading
+
+        from mage_tpu_torch.data import loader
+        from mage_tpu_torch.models import mage, pipeline
+        from mage_tpu_torch.training import autoencoder_kl_trainer, mage_trainer, vqvae_trainer
+
+        probe = self
+
+        def waited(old):
+            def __iter__(self_):
+                it = old(self_)
+                if threading.current_thread() is not threading.main_thread():
+                    yield from it  # a prefetch worker's inner loader
+                    return
+                try:
+                    while True:
+                        t0 = time.perf_counter()
+                        try:
+                            item = next(it)
+                        except StopIteration:
+                            return
+                        probe._wait = time.perf_counter() - t0
+                        yield item
+                finally:
+                    it.close()
+            return __iter__
+
+        def timed_factory(old):
+            def factory(*args, **kwargs):
+                step = old(*args, **kwargs)
+                return lambda *a, **k: probe._timed(step, a, k)
+            return factory
+
+        def generate(old):
+            def wrapped(self_, batch, **kwargs):
+                video = probe._timed(old, (self_, batch), kwargs)
+                probe.videos.append(video)
+                return video
+            return wrapped
+
+        def generate_cached(old):
+            def wrapped(self_, latents0, text, speed=None, **kwargs):
+                gen = kwargs.get("generator")
+                state = gen.get_state().clone() if gen is not None else None
+                ids = old(self_, latents0, text, speed, **kwargs)
+                probe.cached.append({"latents0": latents0.clone(), "text": text.clone(),
+                                     "speed": None if speed is None else speed.clone(),
+                                     "state": state, "ids": ids.clone()})
+                return ids
+            return wrapped
+
+        self._patch(loader.Loader, "__iter__", waited)
+        self._patch(loader.PrefetchLoader, "__iter__", waited)
+        self._patch(vqvae_trainer, "make_train_step", timed_factory)
+        self._patch(autoencoder_kl_trainer, "make_train_step", timed_factory)
+        self._patch(mage_trainer, "make_mage_train_step", timed_factory)
+        self._patch(pipeline.MagePipeline, "generate", generate)
+        self._patch(mage.MAGECore, "generate_cached", generate_cached)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        for owner, name, old in reversed(self._undo):
+            setattr(owner, name, old)
+        self._undo.clear()
+
+    def _timed(self, fn, args, kwargs):
+        torch = self.torch
+        wait, self._wait = self._wait, None
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn(*args, **kwargs)
+        end.record()
+        self.steps.append((start, end, wait))
+        return out
+
+    def summary(self) -> dict:
+        """Steps, s/step by CUDA events from the second step's start to the
+        last one's end (gaps included), each step's own span, and the
+        loader wait per batch, all over the steps after the first (the
+        first step alone when there is one)."""
+        self.torch.cuda.synchronize()
+        steps = self.steps[1:] or self.steps
+        spans = [s.elapsed_time(e) for s, e, _ in steps]
+        waits = [w * 1e3 for _, _, w in steps if w is not None]
+        s_per_step = (steps[0][0].elapsed_time(steps[-1][1]) / len(steps) / 1e3
+                      if steps else None)
+        return {"steps": len(self.steps), "s_per_step": s_per_step,
+                "step_ms": statistics.mean(spans) if spans else None,
+                "loader_wait_ms_per_batch": statistics.mean(waits) if waits else None}
+
+
+def cli_run(torch, kernels, probe, label: str, fn, want: dict, steps: int, card: str):
+    """One entry point's ``main(argv)`` with the launch counts read around
+    it, which must be ``want``, and the train steps or ``generate`` calls
+    the probe timed, which must be ``steps``; logs its line -> (fn's
+    result, the line)."""
+    probe.reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out, launches, routes = count_launches(torch, kernels, fn)
+    wall = time.perf_counter() - t0
+    expect(launches, want, label)
+    if len(probe.steps) != steps:
+        raise AssertionError(f"{label}: the probe timed {len(probe.steps)} steps, not {steps}")
+    line = {"run": label, "card": card, "wall_s": wall, **probe.summary(),
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "launches": {k: v for k, v in launches.items() if v}, "vq_variants": routes}
+    log("cli run: " + json.dumps(line))
+    return out, line
+
+
+def check_compose(torch, np, root: str) -> None:
+    """``device_data.compose_frames`` over every record of the generated
+    store: on the card bit-equal to the CPU's, and both bit-equal to the
+    ``.mrs`` frames after /255 - 0.5."""
+    from mage_tpu_torch.data import device_data as dd
+    from mage_tpu_torch.data.recordio import RecordReader
+
+    compact = dd.build_compact_single_mnist(CLI_TRAIN, CLI_VAL, seed=0)
+    for split, name in (("train", "train"), ("val", "test")):
+        c = compact[split]
+        args = [np.repeat(c["digit"], dd.SEQ_LENGTH), c["ys"].reshape(-1), c["xs"].reshape(-1)]
+        out = {}
+        for device in ("cuda", "cpu"):
+            bank = dd.normalize_bank(compact["bank"], device=device)
+            out[device] = dd.compose_frames(bank, *(torch.as_tensor(a, device=device)
+                                                    for a in args)).cpu()
+        records = RecordReader(f"{root}{name}.mrs")
+        want = np.stack([records[i][0] for i in range(len(records))])
+        want = torch.from_numpy(want.astype(np.float32) / 255.0 - 0.5).reshape(-1, 64, 64, 1)
+        for a, b, what in ((out["cuda"], out["cpu"], "the card and the CPU"),
+                           (out["cpu"], want, "the CPU and the generator's records")):
+            if not torch.equal(a, b):
+                diff = (a - b).abs()
+                raise AssertionError(
+                    f"compose_frames ({split}) differs between {what}: "
+                    f"{int((diff > 0).sum())} values, max {float(diff.max())}")
+    log(f"compose_frames: {CLI_TRAIN + CLI_VAL} clips x {dd.SEQ_LENGTH} frames bit-equal on "
+        "the card, on the CPU and in the generator's records")
+
+
+def cli_config(src: str, dst: str, root: str, first_stage_ckpt: str) -> None:
+    """A copy of a shipped config cut to one epoch whose validation and
+    checkpoints come after its last step, on the generated data and the
+    first stage just trained."""
+    from mage_tpu_torch.config import load_config, save_config
+
+    cfg = load_config(src)
+    cfg.train.epoch = 1
+    cfg.train.checkpoint_every = CLI_STEPS
+    cfg.data.params.data_root = root
+    cfg.model.params.first_stage_config.params.ckpt_path = first_stage_ckpt
+    save_config(cfg, dst)
+
+
+def check_cli_sample_ids(torch, capture: dict, batch_images, ckpt_dir: str) -> None:
+    """The f32 sample's first-frame ids and generated ids against the same
+    restored weights on the CPU (plain versions), the prior noise redrawn
+    from the card generator's state at the call."""
+    from mage_tpu_torch.config import instantiate_from_config, load_config
+
+    cfg = load_config(os.path.join(ckpt_dir, "config.yaml"))
+    pipe = instantiate_from_config(cfg.model, merge={"device": "cpu"})
+    pipe.core.load_state_dict(torch.load(os.path.join(ckpt_dir, "model_best"),
+                                         map_location="cpu", weights_only=True)["model"])
+    latents0 = pipe.encode_first_stage(batch_images[:, 0:1])
+    if not torch.equal(latents0, capture["latents0"].cpu()):
+        raise AssertionError("cli sample: the card's first-frame ids differ from the CPU's")
+    gen = torch.Generator(device="cuda")
+    gen.set_state(capture["state"])
+    b, _, h, w = latents0.shape
+    noise = torch.randn((b, h, w, 64), generator=gen, device="cuda", dtype=torch.float32)
+    ids = pipe.core.generate_cached(latents0, capture["text"].cpu(), capture["speed"].cpu(),
+                                    video_noise=noise.cpu())
+    same = (ids == capture["ids"].cpu()).float().mean().item()
+    log(f"cli sample: f32 ids {tuple(ids.shape)} equal to the CPU's in {same:.6f} of places")
+    if same != 1.0:
+        raise AssertionError("cli sample: the card's f32 ids differ from the CPU's")
+
+
+def run_cli_phase(torch, np, kernels, card: str) -> dict:
+    """The README's chains on the card through ``mage_tpu_torch.cli`` and the
+    generator, in process and in a temporary directory: generate 64 + 16
+    Moving-MNIST clips; compose them on the card; ``train_vqvae`` (f4, dim
+    256, K 512, batch 16, 1 epoch), ``main_mage`` train on
+    ``config/mage_mnist.yaml`` (full width, 4 steps, validation and
+    checkpoints after the 4th) and test (2 items, f32 then ``--bf16``);
+    ``train_autoencoder_kl`` (64 px, ch 64, ch_mult 1,2,4, batch 8),
+    ``main_mage`` train on ``config/mage+_mnist.yaml`` (bf16, auto-beta) and
+    test (1 item, naive sampler). Each run's launches must be as counted
+    below; returns each run's line."""
+    import importlib.util
+    import tempfile
+
+    from mage_tpu_torch.cli import main_mage, train_autoencoder_kl, train_vqvae
+    from mage_tpu_torch.data.generators import mnist_single
+    from mage_tpu_torch.models.autoencoder_kl import AutoencoderKL, ResnetBlock
+
+    t_phase = time.perf_counter()
+    present = {m: importlib.util.find_spec(m) is not None for m in ("PIL", "cv2", "imageio")}
+    log(f"cli phase: packages {present}; the digit bank needs PIL, the stage-1 crop cv2 or "
+        "PIL, the GIFs imageio or else PIL")
+    tf32 = torch.backends.cudnn.allow_tf32
+    lines = {}
+    with tempfile.TemporaryDirectory() as tmp, CliProbe(torch) as probe:
+        mnist_single.main(["--out", tmp, "--num-train", str(CLI_TRAIN), "--num-val",
+                           str(CLI_VAL), "--seed", "0"])
+        root = os.path.join(tmp, "mnist_single_20f_10k_")
+        check_compose(torch, np, root)
+        # the runs train on torch's default precision flags, as a user's do
+        torch.backends.cudnn.allow_tf32 = True
+
+        # MAGE: the f4 VQ-VAE, then stage 2 on config/mage_mnist.yaml
+        stage1 = ["--data-root", root, "--dataset", "mnist", "--num-epochs", "1",
+                  "--log-folder", os.path.join(tmp, "log"), "--seed", "0", "--device", "cuda"]
+        models = os.path.join(tmp, "model")
+        # a train step and an eval step launch vq once, so does the
+        # reconstruction of the fixed test images
+        _, lines["train_vqvae"] = cli_run(torch, kernels, probe, "train_vqvae", lambda: train_vqvae.main(
+            stage1 + ["--output-folder", "mnist_512_256", "--batch-size", str(CLI_BATCH),
+                      "--model-folder", models]),
+            {"vq_nearest": CLI_STEPS + CLI_VAL // CLI_BATCH + 1}, CLI_STEPS, card)
+        mage_cfg = os.path.join(tmp, "mage_mnist.yaml")
+        cli_config("config/mage_mnist.yaml", mage_cfg, root,
+                   os.path.join(models, "mnist_512_256", "best"))
+        ckpt = os.path.join(tmp, "results", "mage_mnist")
+        _, lines["main_mage train (MAGE)"] = cli_run(
+            torch, kernels, probe, "main_mage train (MAGE)",
+            lambda: main_mage.main(["--config", mage_cfg, "--split", "train",
+                                    "--checkpoint-path", ckpt, "--device", "cuda"]),
+            {"vq_nearest": CLI_STEPS + 1, "axial_slot_attention": 4}, CLI_STEPS, card)
+        generate = {"vq_nearest": 1, "axial_slot_attention": 4 * FRAMES,
+                    "cached_slot_attention": 2 * FRAMES}
+        sample = ["--split", "test", "--test_model", os.path.join(ckpt, "model_best"),
+                  "--max-test-items", "2", "--sample-batch-size", "2", "--device", "cuda"]
+        torch.backends.cudnn.allow_tf32 = False  # the f32 sample is held to the CPU's ids
+        done, lines["main_mage test (MAGE, f32)"] = cli_run(
+            torch, kernels, probe, "main_mage test (MAGE, f32)",
+            lambda: main_mage.main(sample), generate, 1, card)
+        if done != 2 or len(probe.cached) != 1:
+            raise AssertionError(f"cli sample: {done} items in {len(probe.cached)} calls")
+        capture, video = probe.cached[0], probe.videos[0]
+        check_cli_sample_ids(torch, capture, video[:, :1].cpu(), ckpt)
+        torch.backends.cudnn.allow_tf32 = True
+        done, lines["main_mage test (MAGE, bf16)"] = cli_run(
+            torch, kernels, probe, "main_mage test (MAGE, bf16)",
+            lambda: main_mage.main(sample + ["--bf16"]), generate, 1, card)
+        video = probe.videos[0].float()
+        if not (done == 2 and torch.isfinite(video).all() and video.abs().max() <= 1.0):
+            raise AssertionError("cli sample (bf16): frames not finite or outside [-1, 1]")
+        if lines["main_mage test (MAGE, bf16)"]["vq_variants"]["wgmma"]:
+            raise AssertionError("cli sample (bf16): the f32 first stage's vq took bf16's variant")
+        gifs = len(os.listdir(os.path.join(ckpt, "videos")))
+
+        # MAGE+: the f4 KL-AE, then stage 2 on config/mage+_mnist.yaml
+        kl = AutoencoderKL(ch=64, ch_mult=(1, 2, 4), in_channels=1, out_ch=1, resolution=64)
+        chains = 2 * sum(isinstance(m, ResnetBlock) for m in kl.decoder.modules())
+        del kl
+        _, lines["train_autoencoder_kl"] = cli_run(
+            torch, kernels, probe, "train_autoencoder_kl", lambda: train_autoencoder_kl.main(
+                stage1 + ["--resolution", "64", "--ch", "64", "--ch-mult", "1", "2", "4",
+                          "--output-folder", "kl_f4_mnist", "--model-folder",
+                          os.path.join(tmp, "autoencoders")]),
+            {"gn_silu_conv3x3": chains * (CLI_VAL // CLI_KL_BATCH),
+             "gn_stats": chains * (CLI_VAL // CLI_KL_BATCH)}, CLI_TRAIN // CLI_KL_BATCH, card)
+        magep_cfg = os.path.join(tmp, "mage+_mnist.yaml")
+        cli_config("config/mage+_mnist.yaml", magep_cfg, root,
+                   os.path.join(tmp, "autoencoders", "kl_f4_mnist", "best"))
+        ckpt = os.path.join(tmp, "results", "mage+_mnist")
+        _, lines["main_mage train (MAGE+)"] = cli_run(
+            torch, kernels, probe, "main_mage train (MAGE+)",
+            lambda: main_mage.main(["--config", magep_cfg, "--split", "train",
+                                    "--checkpoint-path", ckpt, "--device", "cuda"]),
+            {"axial_slot_attention": 4}, CLI_STEPS, card)
+        # the naive sampler (MAGE+'s default): 4 spatial blocks per step over
+        # 15 steps, then one decode chunk of the 15 generated frames
+        done, lines["main_mage test (MAGE+)"] = cli_run(
+            torch, kernels, probe, "main_mage test (MAGE+)",
+            lambda: main_mage.main(["--split", "test", "--test_model",
+                                    os.path.join(ckpt, "model_best"), "--max-test-items",
+                                    "1", "--device", "cuda"]),
+            {"axial_slot_attention": 4 * (FRAMES - 1), "gn_silu_conv3x3": chains,
+             "gn_stats": chains}, 1, card)
+        if not (done == 1 and torch.isfinite(probe.videos[0]).all()):
+            raise AssertionError("cli sample (MAGE+): frames not finite")
+        gifs += len(os.listdir(os.path.join(ckpt, "videos")))
+    torch.backends.cudnn.allow_tf32 = tf32
+    log(f"cli phase took {time.perf_counter() - t_phase:.1f} s ({gifs} GIFs written)")
+    return lines
+
+
 def main() -> int:
     import torch
 
@@ -1461,6 +1798,7 @@ def main() -> int:
         t0 = time.perf_counter()
         run_stage1_reference_check(torch, kernels)
         log(f"stage-1 f32 GPU-vs-CPU check took {time.perf_counter() - t0:.1f} s")
+        run_cli_phase(torch, np, kernels, smi)
         chains = sum(GN_CONV_SITES.values())
         for row in rows:  # per stage-1 train step and eval step (VQ-VAE; KL-AE for gn)
             row["stage1_launches"] = 1 if row["name"] == "vq_nearest" else 0

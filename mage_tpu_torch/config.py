@@ -72,6 +72,18 @@ def load_config(path: str | os.PathLike) -> Config:
         return Config(yaml.safe_load(fp) or {})
 
 
+def loads_config(text: str) -> Config:
+    return Config(yaml.safe_load(text) or {})
+
+
+def save_config(cfg: Mapping, path: str | os.PathLike) -> None:
+    """Write ``cfg`` as YAML in its key order (the trainer's config
+    snapshot), creating the directory."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "w") as fp:
+        yaml.safe_dump(_unwrap(cfg), fp, sort_keys=False)
+
+
 # Reference-repo class paths -> the port's classes (the reference's YAML
 # configs name torch classes, e.g. config/mage_caterv1.yaml:10,24,37,44).
 REFERENCE_TARGET_ALIASES = {

@@ -200,6 +200,14 @@ def test_package_imports_with_jax_and_mage_tpu_blocked():
         "import mage_tpu_torch.training.vqvae_trainer\n"
         "import mage_tpu_torch.training.autoencoder_kl_trainer\n"
         "import mage_tpu_torch.utils.metrics, mage_tpu_torch.utils.timer\n"
+        "import mage_tpu_torch.utils.media\n"
+        "import mage_tpu_torch.data, mage_tpu_torch.data.datasets\n"
+        "import mage_tpu_torch.data.device_data, mage_tpu_torch.data.transforms\n"
+        "import mage_tpu_torch.data.video\n"
+        "from mage_tpu_torch.data.generators import (cater_synthetic, cater_text_anno,\n"
+        "    cater_vqvae_store, mnist_common, mnist_double, mnist_double_modified,\n"
+        "    mnist_single)\n"
+        "from mage_tpu_torch.cli import main_mage, train_autoencoder_kl, train_vqvae\n"
         "print('ok')\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
@@ -220,6 +228,18 @@ def test_no_jax_or_mage_tpu_import_in_the_port():
     assert not hits, hits
     package = ROOT / "mage_tpu_torch"
     scanned = {f.relative_to(package).parts[0] for f in files if package in f.parents}
-    assert {"compat", "models", "ops", "training", "utils"} <= scanned
+    assert {"cli", "compat", "data", "models", "ops", "training", "utils"} <= scanned
     assert _FORBIDDEN.search("from mage_tpu.ops import vq")
     assert not _FORBIDDEN.search("from mage_tpu_torch.ops import vq")
+
+
+def test_every_port_directory_with_modules_is_an_installed_package():
+    # pyproject.toml's package finder skips a directory without __init__.py
+    # and everything under it, so an install would ship the port without it
+    import setuptools
+
+    found = set(setuptools.find_packages(str(ROOT), include=["mage_tpu*"]))
+    dirs = {f.parent.relative_to(ROOT) for f in (ROOT / "mage_tpu_torch").rglob("*.py")}
+    wanted = {".".join(d.parts) for d in dirs}
+    assert {"mage_tpu_torch.data", "mage_tpu_torch.data.generators", "mage_tpu_torch.cli"} <= wanted
+    assert wanted <= found, sorted(wanted - found)
