@@ -60,7 +60,25 @@ fatal on failure (exit code 1; 2 when there is no GPU or no package):
     train and test on ``config/mage+_mnist.yaml``. Each run's launches are
     asserted, and a line gives its wall seconds, steps, s/step by CUDA
     events, loader wait per batch and peak memory;
-11. one JSON line with every kernel's numbers, then the closing JSON line.
+11. the kv-quant phase: MAGE on the main path's shapes with ``kv_quant``
+    None, "int8" and "int4" (launches: no cached-attention kernel over a
+    quantized cache; frames/s, AR core ms, peak memory, the caches' bytes,
+    the ids shared with the unquantized run), then in f32 one slot's codes
+    on the card bit-equal to the CPU's, the quantized attention over one
+    cache at the main path's shapes within 1e-5 of the CPU's, one quantized
+    ``decode_slot`` there held to the CPU's (its quantizations, and its
+    trunk with the CPU's codes forced into the cache), and at
+    batch 2 the card's generated ids no further from an f64 CPU run than
+    the CPU's f32 ids;
+12. the e2e phase: the five ``train_*_e2e`` chains through their entry
+    points at their default widths on a few clips, one epoch of 4 steps per
+    stage, each chain's launches held to the counts ``e2e_chains`` predicts,
+    the first launch of each kernel at each distinct shape the chain gives
+    it held against the kernel's plain version (``E2eProbe.hold``), and
+    its ``e2e_metrics.json`` to its phases; a line per chain (wall s,
+    s/step per stage, materialize and FVD seconds, peak memory, the holds'
+    errors);
+13. one JSON line with every kernel's numbers, then the closing JSON line.
 """
 
 from __future__ import annotations
@@ -68,6 +86,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -855,10 +874,10 @@ def run_training(torch, build_pipeline, kernels, card: str) -> tuple:
     peak_off = torch.cuda.max_memory_allocated() / 2**30
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
 
-    def timed_steps():
+    def timed_steps(on=batch):
         start.record()
         for _ in range(TRAIN_STEPS):
-            terms = step(batch, *args, generator=gen)
+            terms = step(on, *args, generator=gen)
         end.record()
         return terms
 
@@ -868,6 +887,14 @@ def run_training(torch, build_pipeline, kernels, card: str) -> tuple:
     expect(launches, {"vq_nearest": TRAIN_STEPS}, "MAGE train steps")
     if routes != {"simt": TRAIN_STEPS, "wgmma": 0}:
         raise AssertionError("the f32 frozen encode's vq launch did not take the SIMT variant")
+    # the same steps on latents encoded once before them, as the e2e chains
+    # train (training.e2e.materialize): no frozen encode in the step
+    lat_batch = dict(batch, latents=pipe.encode_first_stage(batch["images"]))
+    del lat_batch["images"]
+    step(lat_batch, *args, generator=gen)  # warm-up
+    _, lat_launches, _ = count_launches(torch, kernels, lambda: timed_steps(lat_batch))
+    s_per_step_latents = start.elapsed_time(end) / TRAIN_STEPS / 1e3
+    expect(lat_launches, {}, "MAGE train steps on precomputed latents")
     loss_after = float(terms["final_loss"])
     if not (math.isfinite(loss_warm) and math.isfinite(loss_after)):
         raise AssertionError(f"non-finite training loss: {loss_warm}, {loss_after}")
@@ -910,7 +937,8 @@ def run_training(torch, build_pipeline, kernels, card: str) -> tuple:
         "frames_length": FRAMES, "dtype": "bfloat16 over f32 masters",
         "tf32": {"cudnn": torch.backends.cudnn.allow_tf32,
                  "matmul": torch.backends.cuda.matmul.allow_tf32},
-        "s_per_step": s_per_step, "stage_ms": stages, "stage_ms_remat": stages_remat,
+        "s_per_step": s_per_step, "s_per_step_precomputed_latents": s_per_step_latents,
+        "stage_ms": stages, "stage_ms_remat": stages_remat,
         "stage_tflop": tflop, "stage_tflop_per_s": tflop_per_s,
         "peak_gib_remat_off": peak_off, "peak_gib_remat_on": peak_on,
         "eval_step_ms": eval_ms_by_route, "loss_after_warmup": loss_warm,
@@ -1382,12 +1410,9 @@ CLI_STEPS = CLI_TRAIN // CLI_BATCH
 CLI_KL_BATCH = 8  # train_autoencoder_kl's default batch
 
 
-class CliProbe:
-    """Instrumentation of the cli phase, patched in for its duration: CUDA
-    events around every train step (``make_train_step``,
-    ``make_mage_train_step``) and ``MagePipeline.generate`` call, the host
-    time the main thread waited on a loader for the batch that call took,
-    and the inputs and ids of each ``MAGECore.generate_cached`` call."""
+class Patches:
+    """Attributes of the port replaced for one phase (``_patch`` in
+    ``__enter__``) and put back when it ends."""
 
     def __init__(self, torch):
         self.torch = torch
@@ -1395,15 +1420,31 @@ class CliProbe:
         self.reset()
 
     def reset(self) -> None:
-        self.steps = []  # (start event, end event, loader wait s or None)
-        self.videos = []  # generate's outputs
-        self.cached = []  # generate_cached's inputs, generator state and ids
-        self._wait = None
+        pass
 
     def _patch(self, owner, name, wrap) -> None:
         old = getattr(owner, name)
         self._undo.append((owner, name, old))
         setattr(owner, name, wrap(old))
+
+    def __exit__(self, *exc) -> None:
+        for owner, name, old in reversed(self._undo):
+            setattr(owner, name, old)
+        self._undo.clear()
+
+
+class CliProbe(Patches):
+    """Instrumentation of the cli phase, patched in for its duration: CUDA
+    events around every train step (``make_train_step``,
+    ``make_mage_train_step``) and ``MagePipeline.generate`` call, the host
+    time the main thread waited on a loader for the batch that call took,
+    and the inputs and ids of each ``MAGECore.generate_cached`` call."""
+
+    def reset(self) -> None:
+        self.steps = []  # (start event, end event, loader wait s or None)
+        self.videos = []  # generate's outputs
+        self.cached = []  # generate_cached's inputs, generator state and ids
+        self._wait = None
 
     def __enter__(self) -> "CliProbe":
         import threading
@@ -1465,11 +1506,6 @@ class CliProbe:
         self._patch(pipeline.MagePipeline, "generate", generate)
         self._patch(mage.MAGECore, "generate_cached", generate_cached)
         return self
-
-    def __exit__(self, *exc) -> None:
-        for owner, name, old in reversed(self._undo):
-            setattr(owner, name, old)
-        self._undo.clear()
 
     def _timed(self, fn, args, kwargs):
         torch = self.torch
@@ -1699,6 +1735,575 @@ def run_cli_phase(torch, np, kernels, card: str) -> dict:
     return lines
 
 
+# ---- the kv-quant phase ----------------------------------------------------------
+
+KV_QUANTS = (None, "int8", "int4")
+
+
+def cache_bytes(torch, pipe, batch: int, dtype) -> int:
+    """Bytes of the temporal K/V caches (and scales) ``generate_cached``
+    allocates at ``batch``; int4 codes are stored in int8, so they take
+    int8's bytes."""
+    cache = pipe.core.generate_model.init_cache(batch, 16, 16, dtype, "cuda")
+    return sum(t.numel() * t.element_size() for entry in cache.values() for t in entry)
+
+
+def run_kvquant_phase(torch, np, build_pipeline, kernels, card: str) -> dict:
+    """The cached sampler over a quantized K/V cache: MAGE on the main
+    path's shapes (``config/mage_caterv1.yaml``, batch 32, 16 frames, bf16,
+    flat route) with ``kv_quant`` None, "int8" and "int4" on the same
+    weights: launches around one generate (vq 1, axial 64, cached 32 for
+    None and 0 for the quantized caches, whose attention is plain PyTorch as
+    in JAX), frames/s (median of 3), AR core ms, peak GiB, the caches'
+    bytes, and the share of generated ids equal to the unquantized run's
+    (information, not a check). Then, f32, for int8 and int4: one slot's
+    codes and scales on the card bit-equal to the CPU's; the quantized
+    attention over one cache at the main path's shapes
+    (``check_quant_attention``) and one quantized ``decode_slot`` there
+    (``check_quant_decode_slot``) on the card against the CPU; and, at
+    batch 2, the card's generated
+    ids no further from an f64 CPU run than the CPU's f32 ids are (below),
+    with the shares of ids printed."""
+    from mage_tpu_torch.ops import cached_attention as ca
+
+    t_phase = time.perf_counter()
+    pipe = build_pipeline("config/mage_caterv1.yaml", FRAMES, device="cuda", seed=0)
+    pipe.to(dtype=torch.bfloat16)
+    batch = make_batch(np, BATCH, pipe.core.text_encoder.positions.num_embeddings)
+    gen = torch.Generator(device="cuda")
+    first = torch.from_numpy(batch["images"][:, :1]).to("cuda", torch.bfloat16)
+    text = torch.from_numpy(batch["text"]).cuda()
+    speed = torch.from_numpy(batch["speed"]).to("cuda", torch.bfloat16)
+    lat0 = pipe.first_stage.encode(first)
+    results, ids = {}, {}
+    for kv in KV_QUANTS:
+        pipe.core.generate_model.kv_quant = kv
+        pipe.generate(batch, generator=gen.manual_seed(1), cached=True)  # warm-up
+        _, launches, _ = count_launches(
+            torch, kernels, lambda: pipe.generate(batch, generator=gen.manual_seed(1),
+                                                  cached=True))
+        want = {"vq_nearest": 1, "axial_slot_attention": 4 * FRAMES,
+                "cached_slot_attention": 0 if kv else 2 * FRAMES}
+        expect(launches, want, f"generate with kv_quant={kv}")
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for i in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            video = pipe.generate(batch, generator=gen.manual_seed(2 + i), cached=True)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        if not bool(torch.isfinite(video.float()).all()):
+            raise AssertionError(f"kv_quant={kv}: non-finite frames")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        ar = []
+        for _ in range(3):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = pipe.core.generate_cached(lat0, text, speed, generator=gen.manual_seed(1))
+            end.record()
+            torch.cuda.synchronize()
+            ar.append(start.elapsed_time(end))
+        ids[kv] = out
+        results[str(kv)] = {
+            "card": card, "kv_quant": kv, "launches": {k: v for k, v in launches.items() if v},
+            "generated_frames_per_s": BATCH * (FRAMES - 1) / statistics.median(times),
+            "generate_s": times, "ar_core_ms": statistics.median(ar), "ar_core_ms_runs": ar,
+            "peak_gib": peak, "cache_bytes": cache_bytes(torch, pipe, BATCH, torch.bfloat16),
+            "ids_equal_to_unquantized": float((out == ids[None]).float().mean()),
+        }
+        log("kv-quant run: " + json.dumps(results[str(kv)]))
+
+    # f32: the card against the CPU. The quantizer rounds, so an ulp of
+    # difference in a K/V projection can move a code by one step, and a
+    # free-running AR generation amplifies that: on the CPU alone f32 and
+    # f64 share only about 99% (int8) and 96% (int4) of their ids, against
+    # 100% unquantized. So the deterministic holds are one slot's codes (bit
+    # for bit on the same K/V), the attention over one cache and one
+    # teacher-forced decode_slot, at the main path's shapes;
+    # at batch 2 from the same first-frame ids, the card's generated ids are
+    # only held to be no further from an f64 CPU run than the CPU's f32 are
+    # (twice its distance plus 0.005 of the ids).
+    small = make_batch(np, 2, 32, seed=3)
+    noise = torch.randn(2, 16, 16, 64, generator=torch.Generator().manual_seed(4))
+    pipes = {d: build_pipeline("config/mage_caterv1.yaml", FRAMES, device=d, seed=0)
+             for d in ("cuda", "cpu")}
+    lat0_c = pipes["cpu"].first_stage.encode(torch.from_numpy(small["images"][:, :1]))
+    kv_x = torch.randn(CA_N, CA_D, generator=gen.manual_seed(5), device="cuda") * 3
+    for kv in ("int8", "int4"):
+        bits = 8 if kv == "int8" else 4
+        codes, scale = ca.quantize_kv_slot(kv_x, CA_D // 32, bits)
+        codes_c, scale_c = ca.quantize_kv_slot(kv_x.cpu(), CA_D // 32, bits)
+        if not (torch.equal(codes.cpu(), codes_c) and torch.equal(scale.cpu(), scale_c)):
+            raise AssertionError(f"kv_quant={kv}: the card's codes differ from the CPU's")
+        check_quant_attention(torch, ca, kv, gen.manual_seed(6))
+        check_quant_decode_slot(torch, pipes, kv)
+        out = {}
+        for name, d, dtype in (("cuda", "cuda", torch.float32), ("cpu", "cpu", torch.float32),
+                               ("cpu_f64", "cpu", torch.float64)):
+            p = pipes[d]
+            p.core.generate_model.kv_quant = kv
+            p.core.to(dtype)
+            out[name] = p.core.generate_cached(
+                lat0_c.to(d), torch.from_numpy(small["text"]).to(d),
+                torch.from_numpy(small["speed"]).to(d, dtype),
+                video_noise=noise.to(d, dtype)).cpu()
+        pipes["cpu"].core.float()
+        agree = {f"{a}-{b}": float((out[a] == out[b]).float().mean())
+                 for a, b in (("cuda", "cpu"), ("cuda", "cpu_f64"), ("cpu", "cpu_f64"))}
+        log(f"kv_quant={kv} f32 at batch 2, generated ids shared: {json.dumps(agree)}; "
+            f"the codes of one slot bit-equal")
+        card_off, cpu_off = 1 - agree["cuda-cpu_f64"], 1 - agree["cpu-cpu_f64"]
+        if card_off > 2 * cpu_off + 0.005:
+            raise AssertionError(f"kv_quant={kv}: the card is further from f64 than f32 is")
+    log(f"kv-quant phase took {time.perf_counter() - t_phase:.1f} s")
+    return results
+
+
+def check_quant_attention(torch, ca, kv: str, gen) -> None:
+    """``cached_slot_attention_quant`` at the main path's shapes (8192 tokens,
+    16 slots, width 512, 16 heads) over one fixed filled cache, f32, on the
+    card and on the CPU from the same codes and scales (TF32 off), at the
+    first, a middle and the last slot: within ``F32_TOL``, as the cached
+    kernel's f32 check. The deterministic hold of the quantized attention
+    that a free-running generation cannot give."""
+    bits = 8 if kv == "int8" else 4
+    heads = CA_D // 32
+    q = torch.randn(CA_N, CA_D, generator=gen, device="cuda")
+    slots = [ca.quantize_kv_slot(torch.randn(CA_N, CA_D, generator=gen, device="cuda") * 3,
+                                 heads, bits) for _ in range(2 * CA_L)]
+    ck, cv = (torch.stack([c for c, _ in part]) for part in (slots[:CA_L], slots[CA_L:]))
+    sk, sv = (torch.cat([s_ for _, s_ in part]) for part in (slots[:CA_L], slots[CA_L:]))
+    err = 0.0
+    for pos in (0, CA_L // 2, CA_L - 1):
+        got = ca.cached_slot_attention_quant(q, ck, cv, sk, sv, pos, heads).cpu()
+        want = ca.cached_slot_attention_quant(q.cpu(), ck.cpu(), cv.cpu(), sk.cpu(),
+                                              sv.cpu(), pos, heads)
+        e = float((got - want).abs().max())
+        if not torch.allclose(got, want, rtol=F32_TOL, atol=F32_TOL):
+            raise AssertionError(f"kv_quant={kv}: the quantized attention at pos {pos} on "
+                                 f"the card differs from the CPU's by {e}")
+        err = max(err, e)
+    log(f"kv_quant={kv} quantized attention at ({CA_N}, {CA_L}, {CA_D}), f32, card against "
+        f"CPU on one cache: max abs diff {err}")
+
+
+def check_quant_decode_slot(torch, pipes: dict, kv: str) -> None:
+    """One quantized ``decode_slot`` at the main path's shapes (batch 32,
+    16 x 16 latents, ``config/mage_caterv1.yaml``'s full-width decoder), the
+    anchor at slot 0 and a frame at slot 1, in f32 on the CPU and then on
+    the card from the same weights and inputs (TF32 off). A code is a
+    rounding, so an ulp of difference in a K or V value can flip it by a
+    step, and the later blocks would carry the flip; so the card's run is
+    teacher-forced: each of its ``quantize_kv_slot`` calls is held to the
+    CPU's on the same call (codes equal but for flips in at most 1e-4 of
+    them, none by more than one step; scales within ``F32_TOL`` relative),
+    and the cache takes the CPU's codes and scales. The card's trunk is then
+    held within 1e-4 of the CPU's largest |trunk|."""
+    from mage_tpu_torch.models import layers
+
+    g = torch.Generator().manual_seed(6)
+    dec = pipes["cpu"].core.generate_model
+    anchor = torch.randn(BATCH, 16, 16, dec.context_linear.in_features, generator=g)
+    slot = torch.randn(BATCH, 16, 16, dec.in_linear.in_features, generator=g)
+    real = layers.quantize_kv_slot
+    cpu_calls, calls = [], []
+
+    def recorded(x, n_head, bits=8):
+        cpu_calls.append(real(x, n_head, bits))
+        return cpu_calls[-1]
+
+    def forced(x, n_head, bits=8):
+        codes, scale = real(x, n_head, bits)
+        codes_c, scale_c = cpu_calls[len(calls)]
+        calls.append({
+            "flipped": float((codes.cpu() != codes_c).float().mean()),
+            "steps": float((codes.cpu().int() - codes_c.int()).abs().max()),
+            "scale_rel": float(((scale.cpu() - scale_c).abs() / scale_c).max())})
+        return codes_c.to(x.device), scale_c.to(x.device)
+
+    trunks = {}
+    try:
+        for d, quantize in (("cpu", recorded), ("cuda", forced)):
+            layers.quantize_kv_slot = quantize
+            dec = pipes[d].core.float().eval().generate_model
+            dec.kv_quant = kv
+            cache = dec.init_cache(BATCH, 16, 16, torch.float32, d)
+            with torch.no_grad():
+                dec.decode_slot(anchor.to(d), 0, cache, is_anchor=True)
+                trunks[d] = dec.decode_slot(slot.to(d), 1, cache).cpu()
+            del cache
+    finally:
+        layers.quantize_kv_slot = real
+    worst = {key: max(c[key] for c in calls) for key in ("flipped", "steps", "scale_rel")}
+    trunk_err = float((trunks["cuda"] - trunks["cpu"]).abs().max())
+    trunk_max = float(trunks["cpu"].abs().max())
+    log(f"kv_quant={kv} decode_slot at batch {BATCH}, f32, card against CPU (teacher-forced "
+        f"codes): {len(calls)} quantizations, worst {json.dumps(worst)}; max |trunk diff| "
+        f"{trunk_err} (max |trunk| {trunk_max})")
+    if len(calls) != len(cpu_calls) or worst["flipped"] > 1e-4 or worst["steps"] > 1 \
+            or worst["scale_rel"] > F32_TOL or trunk_err > 1e-4 * trunk_max:
+        raise AssertionError(f"kv_quant={kv}: decode_slot on the card differs from the CPU")
+
+
+# ---- the e2e phase ---------------------------------------------------------------
+
+
+class E2eProbe(Patches):
+    """Instrumentation of the e2e phase, patched in for its duration: CUDA
+    events around every stage-1 step (``vqvae_trainer`` and
+    ``autoencoder_kl_trainer`` step factories) and stage-2 step
+    (``training.e2e.make_mage_train_step``), the host time of
+    ``training.e2e.materialize`` and ``log_fvd`` (device synchronized), and
+    the kernel launches the chains make: the inputs and output of the first
+    launch of each distinct shape (for cached attention, of each of the
+    first, middle and last slot), which ``hold`` then holds against the
+    kernels' plain versions."""
+
+    def reset(self) -> None:
+        self.steps = {"stage1": [], "stage2": []}
+        self.host = {"materialize_s": 0.0, "fvd_s": 0.0}
+        self.held = {}  # (kernel, shapes...) -> (inputs, output)
+
+    def _keep(self, key, inputs, output) -> None:
+        if key not in self.held:
+            self.held[key] = tuple(
+                t.detach().clone() if isinstance(t, self.torch.Tensor) else t
+                for t in (*inputs, *output))
+
+    def __enter__(self) -> "E2eProbe":
+        from mage_tpu_torch.models import autoencoder_kl, layers
+        from mage_tpu_torch.ops import vq
+        from mage_tpu_torch.training import autoencoder_kl_trainer, e2e, vqvae_trainer
+
+        probe, torch = self, self.torch
+
+        def launches(impl, x) -> bool:
+            return impl == "auto" and x.is_cuda
+
+        def nearest(old):  # every vq entry (ids only, with codes, straight-through)
+            def fn(z, codebook, impl, with_codes):
+                idx, codes = old(z, codebook, impl, with_codes)
+                if launches(impl, z):
+                    z_flat = z.reshape(-1, z.shape[-1])
+                    probe._keep(("vq_nearest", tuple(z_flat.shape), z.dtype,
+                                 tuple(codebook.shape), with_codes),
+                                (z_flat, codebook), (idx, codes))
+                return idx, codes
+            return fn
+
+        def gn_conv(old):
+            def fn(x, gamma, beta, weight, bias, *, groups=32, eps=1e-6, impl="auto"):
+                out = old(x, gamma, beta, weight, bias, groups=groups, eps=eps, impl=impl)
+                if launches(impl, x):
+                    probe._keep(("gn_silu_conv3x3", tuple(x.shape), x.dtype,
+                                 tuple(weight.shape), groups, eps),
+                                (x, gamma, beta, weight, bias, groups, eps), (out,))
+                return out
+            return fn
+
+        def axial(old):
+            def fn(q, k, v, n_head, *, impl="auto"):
+                out = old(q, k, v, n_head, impl=impl)
+                if launches(impl, q):
+                    probe._keep(("axial_slot_attention", tuple(q.shape), q.dtype, n_head),
+                                (q, k, v, n_head), (out,))
+                return out
+            return fn
+
+        def cached(old):
+            def fn(q, cache_k, cache_v, pos, n_head, *, impl="auto"):
+                out = old(q, cache_k, cache_v, pos, n_head, impl=impl)
+                length = cache_k.shape[0]
+                if launches(impl, q) and int(pos) in (0, length // 2, length - 1):
+                    probe._keep(("cached_slot_attention", tuple(cache_k.shape), q.dtype,
+                                 n_head, int(pos)),
+                                (q, cache_k, cache_v, int(pos), n_head), (out,))
+                return out
+            return fn
+
+        def timed_factory(stage):
+            def wrap(old):
+                def factory(*args, **kwargs):
+                    step = old(*args, **kwargs)
+
+                    def timed(*a, **k):
+                        start = torch.cuda.Event(enable_timing=True)
+                        end = torch.cuda.Event(enable_timing=True)
+                        start.record()
+                        out = step(*a, **k)
+                        end.record()
+                        probe.steps[stage].append((start, end))
+                        return out
+                    return timed
+                return factory
+            return wrap
+
+        def host_timed(key):
+            def wrap(old):
+                def fn(*args, **kwargs):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    out = old(*args, **kwargs)
+                    torch.cuda.synchronize()
+                    probe.host[key] += time.perf_counter() - t0
+                    return out
+                return fn
+            return wrap
+
+        self._patch(vqvae_trainer, "make_train_step", timed_factory("stage1"))
+        self._patch(autoencoder_kl_trainer, "make_train_step", timed_factory("stage1"))
+        self._patch(e2e, "make_mage_train_step", timed_factory("stage2"))
+        self._patch(e2e, "materialize", host_timed("materialize_s"))
+        self._patch(e2e, "log_fvd", host_timed("fvd_s"))
+        self._patch(vq, "_nearest", nearest)
+        self._patch(autoencoder_kl, "gn_silu_conv3x3", gn_conv)
+        self._patch(layers, "axial_slot_attention", axial)
+        self._patch(layers, "cached_slot_attention", cached)
+        return self
+
+    def hold(self) -> dict:
+        """Each kept launch against its kernel's plain version on the same
+        inputs (TF32 off), at the limits of the kernel checks above:
+        attention f32 within ``F32_TOL``, bf16 within one rounding step;
+        vq ids equal but for near-ties (two distances within 1e-5 of the
+        row's scale) on at most 1e-3 of the rows, codes the rows of the ids;
+        gn_stats within 1e-5 relative of ``gn_affine_rows`` and gn_conv on
+        those rows within ``F32_TOL`` of its largest output in f32, one
+        rounding step plus ``GN_BF16_ATOL`` in bf16 (as ``check_gn_conv``).
+        -> {kernel: {"shapes": n, "max_abs_err": e}}; raises on any miss."""
+        from mage_tpu_torch.ops import axial_attention as ax
+        from mage_tpu_torch.ops import cached_attention as ca
+        from mage_tpu_torch.ops import gn_conv as gc
+        from mage_tpu_torch.ops import vq
+
+        torch = self.torch
+        errs = {}
+
+        def note(name, key, err):
+            log(f"e2e hold {name} {key[1:]}: max |kernel - plain| {err}")
+            entry = errs.setdefault(name, {"shapes": 0, "max_abs_err": 0.0})
+            entry["shapes"] += 1
+            entry["max_abs_err"] = max(entry["max_abs_err"], err)
+
+        def close(got, want, what):
+            tol = (F32_TOL, F32_TOL) if got.dtype == torch.float32 else (BF16_RTOL, 1e-5)
+            got, want = got.float(), want.float()
+            if not torch.allclose(got, want, rtol=tol[0], atol=tol[1]):
+                raise AssertionError(f"e2e {what}: max abs err "
+                                     f"{float((got - want).abs().max())}")
+            return float((got - want).abs().max())
+
+        matmul, cudnn = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+        try:
+            with torch.no_grad():
+                for key, held in self.held.items():
+                    name = key[0]
+                    if name == "axial_slot_attention":
+                        q, k, v, n_head, got = held
+                        want = ax.axial_slot_attention(q, k, v, n_head, impl="torch")
+                        note(name, key, close(got, want, key))
+                    elif name == "cached_slot_attention":
+                        q, ck, cv, pos, n_head, got = held
+                        want = ca.cached_slot_attention(q, ck, cv, pos, n_head, impl="torch")
+                        note(name, key, close(got, want, key))
+                    elif name == "vq_nearest":
+                        z, cb, idx, codes = held
+                        ref_idx, ref_codes = vq._vq_plain(z, cb)
+                        rows = (idx != ref_idx).nonzero().flatten()
+                        zd, cbd = z[rows].double(), cb.double()
+                        dist = (cbd * cbd).sum(1)[None] - 2 * zd @ cbd.T
+                        r = torch.arange(len(rows), device=z.device)
+                        gap = (dist[r, idx[rows].long()] - dist[r, ref_idx[rows].long()]).abs()
+                        if len(rows) > max(1, z.shape[0] * 1e-3) or bool(
+                                (gap > 1e-5 * dist.abs().amax(1)).any()):
+                            raise AssertionError(f"e2e {key}: {len(rows)} ids differ, not "
+                                                 f"all near-ties")
+                        err = 0.0
+                        if codes is not None:
+                            if not torch.equal(codes, cb[idx.long()]):
+                                raise AssertionError(f"e2e {key}: codes are not the rows "
+                                                     f"of the ids")
+                            err = float((codes.float() - ref_codes.float()).abs().max())
+                        note(name, key, err)
+                    else:
+                        x, gamma, beta, weight, bias, groups, eps, got = held
+                        a, b = gc.gn_stats(x, gamma, beta, groups=groups, eps=eps)
+                        wa, wb = gc.gn_stats(x, gamma, beta, groups=groups, eps=eps,
+                                             impl="torch")
+                        stats_err = 0.0
+                        for g_, w_ in ((a, wa), (b, wb)):
+                            e = float((g_ - w_).abs().max())
+                            if not torch.allclose(g_, w_, rtol=1e-5,
+                                                  atol=1e-5 * float(w_.abs().max())):
+                                raise AssertionError(f"e2e gn_stats {key[1:]}: max abs "
+                                                     f"err {e}")
+                            stats_err = max(stats_err, e)
+                        note("gn_stats", key, stats_err)
+                        want = gc.silu_conv3x3_rows(x, a, b, weight, bias).float()
+                        got = got.float()
+                        e = float((got - want).abs().max())
+                        ok = (e <= F32_TOL * float(want.abs().max()) if x.dtype == torch.float32
+                              else torch.allclose(got, want, rtol=BF16_RTOL, atol=GN_BF16_ATOL))
+                        if not ok:
+                            raise AssertionError(f"e2e {key}: max abs err {e}")
+                        note(name, key, e)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = matmul
+            torch.backends.cudnn.allow_tf32 = cudnn
+        self.held.clear()
+        return errs
+
+    def summary(self) -> dict:
+        """Steps and s/step per stage by CUDA events from the second step's
+        start to the last one's end (the first step alone when there is
+        one), and the host seconds."""
+        self.torch.cuda.synchronize()
+        out = dict(self.host)
+        for stage, steps in self.steps.items():
+            timed = steps[1:] or steps
+            out[f"{stage}_steps"] = len(steps)
+            out[f"{stage}_s_per_step"] = (timed[0][0].elapsed_time(timed[-1][1]) / len(timed)
+                                          / 1e3 if timed else None)
+        return out
+
+
+# the cuts of every chain: a few clips, one epoch per stage, 4 steps a stage
+# (one chunk), 8 eval videos (16 clips for the discrete MNIST chains'
+# train-split eval), one GIF, 2 diversity draws; widths, configs and
+# batches are the drivers' defaults
+E2E_CUTS = ["--stage2-epochs", "1", "--chunk", "4", "--gifs", "1", "--eval-videos", "8",
+            "--device", "cuda"]
+E2E_VQ_CUTS = E2E_CUTS + ["--stage1-epochs", "1"]
+E2E_KL_CUTS = E2E_CUTS + ["--ae-epochs", "1", "--diversity-samples", "2"]
+
+
+def e2e_chains(kl_chains: dict) -> list:
+    """(name, module, argv, predicted launches, phases) of the five chains.
+    The counts follow the code: a VQ-VAE train step and an eval-mode encode
+    launch vq once each (stage 1: 4 steps and the val recon at epoch 0, plus
+    the motion frame for CATER, and the final one); materialize encodes
+    ceil(clips / chunk) chunks of each split; a stage-2 train step runs no
+    kernel (train mode) and the eval step 4 axial; a cached generate of L
+    frames launches 4L axial and 2L cached, a naive one 4(L-1) axial; a
+    KL-AE decode launches gn_conv and gn_stats once per decoder chain
+    (``kl_chains``) per call of at most 96 frames. MNIST chains have L=16,
+    CATER chains L=10."""
+    from mage_tpu_torch.cli import (train_cater_e2e, train_cater_kl_e2e, train_mnist2_e2e,
+                                    train_mnist_e2e, train_mnist_kl_e2e)
+
+    def cdiv(a, b):
+        return -(-a // b)
+
+    vq_mnist = 4 + 2 + cdiv(64, 50) + cdiv(16, 50)
+    mnist = {"vq_nearest": vq_mnist, "axial_slot_attention": 4 + 2 * 64,
+             "cached_slot_attention": 2 * 32}
+    c = kl_chains["f4"]
+    decode = c * cdiv(8 * 15, 96)  # 8 videos x 15 generated frames
+    mnist_kl = {"axial_slot_attention": 4 + 64 + 60 + 2 * 64,
+                "cached_slot_attention": 32 + 2 * 32,
+                "gn_silu_conv3x3": 2 * c + 4 * decode + c * cdiv(8 * 16, 96)}
+    mnist_kl["gn_stats"] = mnist_kl["gn_silu_conv3x3"]
+    cater = {"vq_nearest": 4 + 3 + cdiv(16, 5) + cdiv(8, 5), "axial_slot_attention": 4 + 40,
+             "cached_slot_attention": 20}
+    c = kl_chains["f8"]
+    decode = c * cdiv(8 * 9, 96)
+    cater_kl = {"axial_slot_attention": 4 + 40 + 36 + 2 * 40,
+                "cached_slot_attention": 20 + 2 * 20,
+                "gn_silu_conv3x3": 2 * c + 4 * decode + c * cdiv(8 * 10, 96)}
+    cater_kl["gn_stats"] = cater_kl["gn_silu_conv3x3"]
+    mnist_clips = ["--num-train", "64", "--num-val", "16"]
+    return [
+        ("train_mnist_e2e", train_mnist_e2e, E2E_VQ_CUTS + mnist_clips, mnist,
+         ["stage1", "stage1_final", "latents", "stage2", "generation_val",
+          "generation_train"]),
+        ("train_mnist2_e2e", train_mnist2_e2e, E2E_VQ_CUTS + mnist_clips + ["--bf16"], mnist,
+         ["stage1", "stage1_final", "latents", "stage2", "generation_val", "fvd_val",
+          "generation_train", "fvd_train"]),
+        ("train_cater_e2e", train_cater_e2e,
+         E2E_VQ_CUTS + ["--num-train", "16", "--num-val", "8", "--dataset", "caterv1",
+                        "--bf16"], cater,
+         ["stage1", "stage1_final", "latents", "stage2", "generation_val", "fvd_val"]),
+        ("train_mnist_kl_e2e", train_mnist_kl_e2e, E2E_KL_CUTS + mnist_clips, mnist_kl,
+         ["klae", "klae_final", "moments", "stage2", "samplers_val", "diversity_val",
+          "fvd_val"]),
+        ("train_cater_kl_e2e", train_cater_kl_e2e,
+         E2E_KL_CUTS + ["--num-train", "16", "--num-val", "8"], cater_kl,
+         ["klae", "klae_final", "moments", "stage2", "samplers_val", "diversity_val",
+          "generation_val", "fvd_val"]),
+    ]
+
+
+def run_e2e_phase(torch, kernels, card: str) -> dict:
+    """The five e2e chains through their entry points
+    (``mage_tpu_torch.cli.train_*_e2e.main``), in process and in a
+    temporary directory, at their default widths with the cuts of
+    ``E2E_CUTS`` (printed): each chain's launches must be the ones
+    ``e2e_chains`` predicts, every kernel it launched must hold against its
+    plain version at each shape the chain gave it (``E2eProbe.hold``), its
+    stages must take their 4 timed steps, and its ``e2e_metrics.json`` must
+    hold its phases in order with finite numbers. A line per chain gives wall s, the host seconds up to each of
+    its records, stage-1 and stage-2 s/step (CUDA events), materialize s,
+    the FVD's s on the card (random-init I3D), peak GiB and the launches."""
+    import tempfile
+
+    from mage_tpu_torch.models.autoencoder_kl import AutoencoderKL, ResnetBlock
+
+    t_phase = time.perf_counter()
+    kl_chains = {}
+    for name, mult in (("f4", (1, 2, 4)), ("f8", (1, 2, 4, 4))):
+        ae = AutoencoderKL(ch=32, ch_mult=mult)
+        kl_chains[name] = 2 * sum(isinstance(m, ResnetBlock) for m in ae.decoder.modules())
+    log(f"e2e phase: cuts {E2E_CUTS}, VQ chains {E2E_VQ_CUTS[len(E2E_CUTS):]}, KL chains "
+        f"{E2E_KL_CUTS[len(E2E_CUTS):]}, clips per chain as listed; decoder chains {kl_chains}")
+    lines = {}
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True  # torch's default, as a user's run gets it
+    with tempfile.TemporaryDirectory() as tmp, E2eProbe(torch) as probe:
+        for name, module, argv, want, phases in e2e_chains(kl_chains):
+            out_dir = os.path.join(tmp, name)
+            probe.reset()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0, start = time.perf_counter(), time.time()
+            _, launches, routes = count_launches(
+                torch, kernels, lambda: module.main(argv + ["--out", out_dir]))
+            wall = time.perf_counter() - t0
+            expect(launches, want, name)
+            held = probe.hold()
+            if set(held) != {k for k, n in launches.items() if n}:
+                raise AssertionError(f"{name}: held {sorted(held)}, launched {launches}")
+            summary = probe.summary()
+            if summary["stage1_steps"] != 4 or summary["stage2_steps"] != 4:
+                raise AssertionError(f"{name}: steps {summary}")
+            with open(os.path.join(out_dir, "e2e_metrics.json")) as fp:
+                rows = [json.loads(line) for line in fp]
+            if [r["phase"] for r in rows] != phases:
+                raise AssertionError(f"{name}: phases {[r['phase'] for r in rows]}")
+            bad = [(r["phase"], k) for r in rows for k, v in r.items()
+                   if isinstance(v, float) and not math.isfinite(v)]
+            if bad:
+                raise AssertionError(f"{name}: non-finite metrics {bad}")
+            # host seconds up to each record: data and set-up, then each phase
+            marks = [start] + [r["time"] for r in rows]
+            phase_s = {r["phase"]: b - a for r, a, b in zip(rows, marks, marks[1:])}
+            line = {"run": name, "card": card, "argv": argv, "wall_s": wall, **summary,
+                    "phase_s": phase_s,
+                    "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                    "launches": {k: v for k, v in launches.items() if v}, "vq_variants": routes,
+                    "held": held,
+                    "metrics": {r["phase"]: {k: v for k, v in r.items()
+                                             if k not in ("phase", "time", "extractor")}
+                                for r in rows}}
+            log("e2e run: " + json.dumps(line))
+            lines[name] = line
+            shutil.rmtree(out_dir)  # a full-width chain's checkpoints take gigabytes
+    torch.backends.cudnn.allow_tf32 = tf32
+    log(f"e2e phase took {time.perf_counter() - t_phase:.1f} s")
+    return lines
+
+
 def main() -> int:
     import torch
 
@@ -1799,6 +2404,14 @@ def main() -> int:
         run_stage1_reference_check(torch, kernels)
         log(f"stage-1 f32 GPU-vs-CPU check took {time.perf_counter() - t0:.1f} s")
         run_cli_phase(torch, np, kernels, smi)
+        run_kvquant_phase(torch, np, build_pipeline, kernels, smi)
+        e2e_lines = run_e2e_phase(torch, kernels, smi)
+        for row in rows:  # over the five chains of the e2e phase
+            row["e2e_launches"] = sum(line["launches"].get(row["name"], 0)
+                                      for line in e2e_lines.values())
+            errs = [line["held"][row["name"]]["max_abs_err"] for line in e2e_lines.values()
+                    if row["name"] in line["held"]]
+            row["e2e_max_abs_err"] = max(errs) if errs else None
         chains = sum(GN_CONV_SITES.values())
         for row in rows:  # per stage-1 train step and eval step (VQ-VAE; KL-AE for gn)
             row["stage1_launches"] = 1 if row["name"] == "vq_nearest" else 0
@@ -1826,14 +2439,15 @@ def main() -> int:
                         for key in ("ms", "plain_ms", "bound_ms"))
     for row in rows:
         for key in ("ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err",
-                    "conv_only_ms", "unfused_ms", "train_ms", "train_bound_ms", *stage1_keys):
+                    "conv_only_ms", "unfused_ms", "train_ms", "train_bound_ms", *stage1_keys,
+                    "e2e_max_abs_err"):
             if row[key] is not None and not math.isfinite(row[key]):
                 print(f"chip_smoke: {row['name']} {key} = {row[key]}", file=sys.stderr)
                 return 1
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "conv_only_ms", "unfused_ms",
             "train_launches", "train_ms", "train_bound_ms", "stage1_launches",
-            "stage1_eval_launches", *stage1_keys)
+            "stage1_eval_launches", *stage1_keys, "e2e_launches", "e2e_max_abs_err")
     print(json.dumps({"kernels": [{k: row[k] for k in keys} for row in rows]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}),

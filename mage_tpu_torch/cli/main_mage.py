@@ -45,6 +45,9 @@ def parse_args(argv=None):
     p.add_argument("--top-k", type=int, default=0,
                    help="restrict stochastic decoding to the top-k logits "
                         "(0 = no restriction; needs --temperature > 0)")
+    p.add_argument("--kv-quant", type=str, default=None, choices=["int8", "int4"],
+                   help="store the cached sampler's K/V cache as int8 or int4 "
+                        "codes with per-head scales (default: unquantized)")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device; cpu runs the kernels' plain versions")
     return p.parse_args(argv)
@@ -60,7 +63,8 @@ def build_pipeline(configs, opt):
     from mage_tpu_torch.config import instantiate_from_config
 
     return instantiate_from_config(configs.model, merge={"device": opt.device,
-                                                         "seed": opt.seed})
+                                                         "seed": opt.seed,
+                                                         "kv_quant": opt.kv_quant})
 
 
 def train(opt) -> None:

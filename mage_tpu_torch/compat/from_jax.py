@@ -10,7 +10,9 @@ for MAGE (``use_cids=True``, ``pre_ln=False``, whose
 ``ln_q``/``ln_kv`` are emitted as identity) and MAGE+ (``use_cids=False``,
 ``pre_ln=True``: the continuous head, the latent projection and real
 ``ln_q``/``ln_kv``), and the KL autoencoder (``export_autoencoder_kl``, to the
-ldm keys; the JAX package has no exporter for it).
+ldm keys; the JAX package has no exporter for it), and the I3D feature
+network (``export_i3d``, to piergiaj/pytorch-i3d's keys: the inverse of
+the JAX package's ``import_i3d_torch``).
 
 ``load`` and ``load_pipeline`` strict-load the result into the port's modules.
 """
@@ -323,6 +325,35 @@ def export_autoencoder_kl(variables: Mapping[str, Any]) -> dict:
                 _put_conv(sd, key, p)
     _put_conv(sd, "quant_conv", params["quant_conv"])
     _put_conv(sd, "post_quant_conv", params["post_quant_conv"])
+    return sd
+
+
+def export_i3d(variables: Mapping[str, Any]) -> dict:
+    """JAX I3D variables ``{params, batch_stats}`` -> a pytorch-i3d state
+    dict (``Conv3d_1a_7x7.conv3d.weight``, ``Mixed_3b.b1a.bn.running_var``,
+    ``logits.conv3d.bias``, ...), the layout of ``mage_tpu_torch.evals.i3d``.
+    Every BatchNorm also gets pytorch-i3d's ``num_batches_tracked`` (0),
+    which the JAX importer drops."""
+    params, stats = variables["params"], variables.get("batch_stats", {})
+    sd: dict = {}
+
+    def put_unit(prefix, p, s):
+        sd[f"{prefix}.conv3d.weight"] = conv3d_weight(p["conv3d"]["kernel"])
+        if "bias" in p["conv3d"]:
+            sd[f"{prefix}.conv3d.bias"] = _np(p["conv3d"]["bias"])
+        if "bn" in p:
+            sd[f"{prefix}.bn.weight"] = _np(p["bn"]["scale"])
+            sd[f"{prefix}.bn.bias"] = _np(p["bn"]["bias"])
+            sd[f"{prefix}.bn.running_mean"] = _np(s["bn"]["mean"])
+            sd[f"{prefix}.bn.running_var"] = _np(s["bn"]["var"])
+            sd[f"{prefix}.bn.num_batches_tracked"] = np.array(0, np.int64)
+
+    for name, p in params.items():
+        if name.startswith("Mixed"):
+            for branch, bp in p.items():
+                put_unit(f"{name}.{branch}", bp, stats.get(name, {}).get(branch, {}))
+        else:
+            put_unit(name, p, stats.get(name, {}))
     return sd
 
 

@@ -18,7 +18,8 @@ Eval-mode blocks that attend along H or W go through
 they run the plain layers, as JAX gates its kernels on ``not train``. The
 temporal blocks of the cached sampler go through
 ``ops.cached_slot_attention`` and write the new slot's K/V into the cache in
-place.
+place; over a quantized cache (``kv_quant``) they quantize the slot's K/V
+per head on write and attend through ``ops.cached_slot_attention_quant``.
 """
 
 from __future__ import annotations
@@ -31,7 +32,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from mage_tpu_torch.ops.axial_attention import axial_block_fused, axial_slot_attention
-from mage_tpu_torch.ops.cached_attention import cached_slot_attention
+from mage_tpu_torch.ops.cached_attention import (
+    cached_slot_attention,
+    cached_slot_attention_quant,
+    quantize_kv_slot,
+)
 
 NEG_INF = -1e9  # additive mask value, as in the JAX package
 SPATIAL_ATTN = ("flat", "fusedblock")  # routes of an unmasked (H or W) block
@@ -164,25 +169,52 @@ class AxialAttentionBlock(nn.Module):
                 self.mlp.c_fc.weight, self.mlp.c_fc.bias,
                 self.mlp.c_proj.weight, self.mlp.c_proj.bias)
 
+    def _temporal_slot(self, x_slot: torch.Tensor, attend) -> torch.Tensor:
+        """The block on one temporal slot (B, H, W, C), with ``attend(q, k,
+        v)`` -> (B*H*W, C) storing the slot's K/V and attending over the
+        cache."""
+        b, hgt, wdt, c = x_slot.shape
+        seq = x_slot.reshape(b * hgt * wdt, c)
+        h = self.ln_1(seq)
+        q = self.attn.project_q(h)
+        k, v = self.attn.project_kv(h)
+        seq = seq + self.attn.out_proj(attend(q, k, v))
+        seq = seq + self.mlp(self.ln_2(seq))
+        return seq.reshape(b, hgt, wdt, c)
+
     def incremental_temporal(self, x_slot: torch.Tensor, cache_k: torch.Tensor,
                              cache_v: torch.Tensor, pos: int) -> torch.Tensor:
         """One new temporal slot (B, H, W, C) of a causal T-block: writes its
         K/V into slot ``pos`` of the time-major (L, B*H*W, C) caches and
         attends over slots <= pos. The caches are updated in place, which
         saves the copy of the whole cache that a functional update makes."""
-        b, hgt, wdt, c = x_slot.shape
-        n = b * hgt * wdt
-        seq = x_slot.reshape(n, c)
-        h = self.ln_1(seq)
-        q = self.attn.project_q(h)
-        k, v = self.attn.project_kv(h)
-        cache_k[pos].copy_(k)
-        cache_v[pos].copy_(v)
-        attn_out = self.attn.out_proj(
-            cached_slot_attention(q, cache_k, cache_v, pos, self.n_head))
-        seq = seq + attn_out
-        seq = seq + self.mlp(self.ln_2(seq))
-        return seq.reshape(b, hgt, wdt, c)
+
+        def attend(q, k, v):
+            cache_k[pos].copy_(k)
+            cache_v[pos].copy_(v)
+            return cached_slot_attention(q, cache_k, cache_v, pos, self.n_head)
+
+        return self._temporal_slot(x_slot, attend)
+
+    def incremental_temporal_quant(self, x_slot: torch.Tensor, cache_k: torch.Tensor,
+                                   cache_v: torch.Tensor, scale_k: torch.Tensor,
+                                   scale_v: torch.Tensor, pos: int,
+                                   bits: int = 8) -> torch.Tensor:
+        """``incremental_temporal`` over a quantized cache: (L, B*H*W, C)
+        int8 codes and (L, n_head) f32 scales. The slot's K/V are quantized
+        per head to ``bits`` (8 or 4) and written with their scales into
+        slot ``pos`` in place; the attention folds the scales into its
+        scores and weights."""
+
+        def attend(q, k, v):
+            for cache, scale, x in ((cache_k, scale_k, k), (cache_v, scale_v, v)):
+                codes, s = quantize_kv_slot(x, self.n_head, bits)
+                cache[pos].copy_(codes)
+                scale[pos].copy_(s[0])
+            return cached_slot_attention_quant(q, cache_k, cache_v, scale_k, scale_v, pos,
+                                               self.n_head)
+
+        return self._temporal_slot(x_slot, attend)
 
     def single_slot_spatial(self, x_slot: torch.Tensor) -> torch.Tensor:
         """Run this H- or W-axis block on one temporal slot (B, H, W, C)."""

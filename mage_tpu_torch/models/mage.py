@@ -15,8 +15,9 @@ the JAX package. The samplers always run in eval mode; the loss forward runs
 in the module's mode (dropout in train mode).
 
 Parameter names are the reference state-dict keys (``generate_model.*``,
-``text_encoder.*``, ``ma_encoder.*``, ``conv.0.weight`` and so on). The
-quantized KV cache comes in a later slice (ROADMAP A3).
+``text_encoder.*``, ``ma_encoder.*``, ``conv.0.weight`` and so on).
+``kv_quant="int8"|"int4"`` (the JAX package's ``MAGE_KV_QUANT``) stores the
+cached sampler's K/V as int8 codes with per-(slot, head) f32 scales.
 """
 
 from __future__ import annotations
@@ -41,6 +42,7 @@ from mage_tpu_torch.models.layers import (
 
 
 GN_GROUPS = 32  # groups of the continuous head's GroupNorm
+KV_QUANT = {None: None, "int8": 8, "int4": 4}  # kv_quant -> code bits
 
 
 def causal_temporal_bias(length: int, dtype=torch.float32, device=None) -> torch.Tensor:
@@ -113,6 +115,17 @@ def group_moments(x: torch.Tensor, num_groups: int):
     return xg.shape[1] * xg.shape[3], xg.sum(dim=(1, 3)), (xg * xg).sum(dim=(1, 3))
 
 
+def check_kv_quant(kv_quant: Optional[str], d_model: int, n_head: int) -> None:
+    """Unknown ``kv_quant`` values raise, as JAX's ``MAGE_KV_QUANT`` does; so
+    does a quantized cache whose head width is not 32, where JAX's
+    ``model_channels // 32`` scale columns would not be one per head."""
+    if kv_quant not in KV_QUANT:
+        raise ValueError(f"kv_quant must be None, 'int8' or 'int4', got {kv_quant!r}")
+    if kv_quant is not None and (n_head < 1 or d_model != 32 * n_head):
+        raise ValueError(f"kv_quant={kv_quant!r} needs heads of width 32; d_model "
+                         f"{d_model} with {n_head} heads")
+
+
 class FlatAxialDecoder(nn.Module):
     """``layers`` axial blocks cycling T, H, W (``i % 3``); T-blocks are
     causal. The motion anchor is pseudo-frame 0; outputs predict frames
@@ -121,14 +134,17 @@ class FlatAxialDecoder(nn.Module):
     ``spatial_attn`` is every block's eval-mode route for its unmasked (H
     and W) calls (``AxialAttentionBlock``). ``remat`` recomputes each block's
     activations in the backward pass (``torch.utils.checkpoint``) in train
-    mode."""
+    mode. ``kv_quant`` (None, "int8" or "int4") makes ``init_cache`` hold
+    quantized K/V (``check_kv_quant``)."""
 
     def __init__(self, in_channels: int, model_channels: int, out_channels: int,
                  frames_length: int, layers: int, context_channels: Optional[int] = None,
                  use_cids: bool = True, spatial_attn: str = "flat", dropout: float = 0.0,
-                 remat: bool = False):
+                 remat: bool = False, kv_quant: Optional[str] = None):
         super().__init__()
         mc = model_channels
+        check_kv_quant(kv_quant, mc, mc // 32)
+        self.kv_quant = kv_quant
         self.frames_length = frames_length
         self.model_channels = mc
         self.use_cids = use_cids
@@ -171,8 +187,24 @@ class FlatAxialDecoder(nn.Module):
         return self.head(x[:, 1:])
 
     def init_cache(self, batch: int, h: int, w: int, dtype, device) -> dict:
-        """Empty time-major (L, B*h*w, C) K/V caches, one pair per T-block."""
+        """Empty time-major (L, B*h*w, C) K/V caches, one entry per T-block:
+        a (k, v) pair in ``dtype``, or with ``kv_quant`` a 4-tuple (k codes,
+        v codes, k scales, v scales) of int8 (L, B*h*w, C) and f32
+        (L, n_head) tensors. JAX sizes the scales ``model_channels // 32``;
+        here they follow the blocks' heads, which ``check_kv_quant`` holds
+        at width 32."""
+        n_head = self.blocks[0].n_head
+        check_kv_quant(self.kv_quant, self.model_channels, n_head)
         shape = (self.frames_length, batch * h * w, self.model_channels)
+        if self.kv_quant is not None:
+            sshape = (self.frames_length, n_head)
+            return {
+                f"layer_{i}": (torch.zeros(shape, dtype=torch.int8, device=device),
+                               torch.zeros(shape, dtype=torch.int8, device=device),
+                               torch.zeros(sshape, dtype=torch.float32, device=device),
+                               torch.zeros(sshape, dtype=torch.float32, device=device))
+                for i in range(len(self.blocks)) if i % 3 == 0
+            }
         return {
             f"layer_{i}": (torch.zeros(shape, dtype=dtype, device=device),
                            torch.zeros(shape, dtype=dtype, device=device))
@@ -182,13 +214,22 @@ class FlatAxialDecoder(nn.Module):
     def decode_slot(self, slot: torch.Tensor, pos: int, cache: dict,
                     is_anchor: bool = False) -> torch.Tensor:
         """One temporal slot (B, h, w, C_in or C_ctx) through every block,
-        extending the caches at ``pos`` in place -> trunk (B, h, w, mc)."""
+        extending the caches at ``pos`` in place -> trunk (B, h, w, mc).
+        ``kv_quant`` alone picks the attention; a cache that ``init_cache``
+        made under another ``kv_quant`` raises."""
+        bits = KV_QUANT[self.kv_quant]
         x = self.context_linear(slot) if is_anchor else self.in_linear(slot)
         x = x + self.T_positional_embedding[pos]
         for i, block in enumerate(self.blocks):
             if i % 3 == 0:
-                k, v = cache[f"layer_{i}"]
-                x = block.incremental_temporal(x, k, v, pos)
+                entry = cache[f"layer_{i}"]
+                if len(entry) != (2 if bits is None else 4):
+                    raise ValueError(f"a cache of {len(entry)}-tuples under "
+                                     f"kv_quant={self.kv_quant!r}: make it with init_cache")
+                if bits is not None:
+                    x = block.incremental_temporal_quant(x, *entry, pos, bits=bits)
+                else:
+                    x = block.incremental_temporal(x, *entry, pos)
             else:
                 x = block.single_slot_spatial(x)
         return x
@@ -221,7 +262,8 @@ class MAGECore(nn.Module):
     """All trainable stage-2 state: discrete MAGE (``use_cids=True``, ids
     embedded by ``visual_token_embedding``) or MAGE+ (continuous latents of
     ``embed_dim`` channels projected by it, with ``pre_ln`` cross-attention).
-    ``spatial_attn`` ("flat" or "fusedblock") goes to the decoder's blocks.
+    ``spatial_attn`` ("flat" or "fusedblock") goes to the decoder's blocks,
+    ``kv_quant`` (None, "int8" or "int4") to its cache.
 
     Training fields as in JAX: ``dropout`` (the decoder's and the motion
     anchor's; ``text_dropout`` the text encoder's), ``remat`` (recompute the
@@ -241,7 +283,7 @@ class MAGECore(nn.Module):
                  text_padding_idx: int = 0, text_dropout: float = 0.0,
                  ma_layers: int = 1, ma_d_model: int = 512,
                  dec_layers: int = 6, dec_out_channels: int = 512,
-                 spatial_attn: str = "flat"):
+                 spatial_attn: str = "flat", kv_quant: Optional[str] = None):
         super().__init__()
         w, r = vision_width, image_resolution
         self.codebook_size = codebook_size
@@ -273,7 +315,8 @@ class MAGECore(nn.Module):
         self.generate_model = FlatAxialDecoder(
             in_channels=w, model_channels=ma_d_model, out_channels=dec_out_channels,
             frames_length=frames_length, layers=dec_layers, context_channels=ma_d_model,
-            use_cids=use_cids, spatial_attn=spatial_attn, dropout=dropout, remat=remat)
+            use_cids=use_cids, spatial_attn=spatial_attn, dropout=dropout, remat=remat,
+            kv_quant=kv_quant)
         if randomness:
             self.conv3d = nn.ModuleList(
                 BasicBlock3D(w, out, stride=1, stride_t=2, downsample=True)

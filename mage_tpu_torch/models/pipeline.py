@@ -195,7 +195,8 @@ class MagePipeline:
     (``model.params``). ``spatial_attn="fusedblock"`` runs every eval-mode
     spatial decoder block as one fused op (the JAX package's
     ``MAGE_SPATIAL_ATTN=fusedblock``); the default ``"flat"`` runs its layers
-    around the flat attention op.
+    around the flat attention op. ``kv_quant="int8"|"int4"`` quantizes the
+    cached sampler's K/V cache (the JAX package's ``MAGE_KV_QUANT``).
 
     The training fields are the JAX class's: ``dropout``, ``remat`` and the
     loss weights go to the core; ``alpha``, ``beta``, ``v_kl`` (the KL
@@ -225,6 +226,7 @@ class MagePipeline:
         device: Optional[str | torch.device] = None,
         seed: int = 0,
         spatial_attn: str = "flat",
+        kv_quant: Optional[str] = None,
     ):
         self.device = resolve_device(device)
         self.randomness = randomness
@@ -273,6 +275,7 @@ class MagePipeline:
             dec_layers=dec.get("layers", 6),
             dec_out_channels=dec.get("out_channels", codebook_size if use_cids else 4),
             spatial_attn=spatial_attn,
+            kv_quant=kv_quant,
         )
         init_weights(self.core, torch.Generator().manual_seed(seed))
         init_weights(self.first_stage.model, torch.Generator().manual_seed(seed + 1))
@@ -453,11 +456,13 @@ def build_pipeline(config_path: str | os.PathLike = "config/mage_caterv1.yaml",
                    frames_length: Optional[int] = None, *,
                    device: Optional[str | torch.device] = None,
                    seed: int = 0, spatial_attn: str = "flat",
-                   dropout: Optional[float] = None) -> MagePipeline:
+                   dropout: Optional[float] = None,
+                   kv_quant: Optional[str] = None) -> MagePipeline:
     """``MagePipeline`` from a YAML config with random weights from ``seed``
     and no first-stage checkpoint (its ``ckpt_path`` is dropped, as the JAX
     bench does); ``frames_length`` overrides the config's clip length and
-    ``spatial_attn`` picks the spatial blocks' route (``MagePipeline``).
+    ``spatial_attn`` picks the spatial blocks' route and ``kv_quant`` the
+    cache's storage (``MagePipeline``).
     ``dropout``, when given, replaces every stage-2 dropout rate of the
     config (the text encoder's too)."""
     cfg = load_config(config_path)
@@ -470,4 +475,5 @@ def build_pipeline(config_path: str | os.PathLike = "config/mage_caterv1.yaml",
         p.dropout = dropout
         p.text_encoder_config.params.dropout = dropout
     return instantiate_from_config(cfg.model, merge={"device": device, "seed": seed,
-                                                        "spatial_attn": spatial_attn})
+                                                        "spatial_attn": spatial_attn,
+                                                        "kv_quant": kv_quant})

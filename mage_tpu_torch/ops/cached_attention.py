@@ -7,7 +7,10 @@ Port of ``mage_tpu/ops/cached_attention.py::cached_slot_attention``
 runs ``_attn_plain`` (the math of ``_attn_xla``, additive bias -1e9 past
 ``pos``), the kernel's oracle.
 
-The quantized cache (``MAGE_KV_QUANT``) is not ported yet.
+The quantized cache (the JAX package's ``MAGE_KV_QUANT``; here the
+decoder's ``kv_quant`` option) is ``quantize_kv_slot`` and
+``cached_slot_attention_quant``, plain PyTorch on every device, as JAX
+runs them in XLA: no kernel is launched for it.
 """
 
 from __future__ import annotations
@@ -79,3 +82,50 @@ def cached_slot_attention(q: torch.Tensor, cache_k: torch.Tensor,
         return _attn_cuda(q.contiguous(), cache_k.contiguous(), cache_v.contiguous(),
                           int(pos), n_head)
     return _attn_plain(q, cache_k, cache_v, int(pos), n_head)
+
+
+# ---- quantized KV cache (``kv_quant="int8"|"int4"``) ------------------------
+
+
+def quantize_kv_slot(x: torch.Tensor, n_head: int, bits: int = 8):
+    """Symmetric per-head quantization of one new cache slot: x (N, D) ->
+    (codes (N, D) int8, scale (1, n_head) f32), scale = max(amax, 1e-8) /
+    qmax with qmax = 2**(bits-1) - 1 and codes = clip(round(x / scale)).
+    Rounding is half to even, as ``jnp.round``. Torch has no int4 dtype, so
+    4-bit codes are int8 values clipped to +-7: they take int8's bytes."""
+    n, d = x.shape
+    hd = d // n_head
+    qmax = float(2 ** (bits - 1) - 1)
+    xf = x.float().reshape(n, n_head, hd)
+    amax = xf.abs().amax(dim=(0, 2))  # (H,)
+    # true divisions by tensors: CUDA divides by a Python scalar through its
+    # reciprocal, one ulp off the quotient XLA computes
+    scale = torch.clamp(amax, min=1e-8) / torch.full_like(amax, qmax)
+    codes = torch.clamp(torch.round(xf / scale[None, :, None]), -qmax, qmax)
+    return codes.reshape(n, d).to(torch.int8), scale[None, :]
+
+
+def cached_slot_attention_quant(q: torch.Tensor, cache_k: torch.Tensor,
+                                cache_v: torch.Tensor, scale_k: torch.Tensor,
+                                scale_v: torch.Tensor, pos: int,
+                                n_head: int) -> torch.Tensor:
+    """``cached_slot_attention`` over (L, N, D) int8 code caches with
+    (L, n_head) f32 per-slot, per-head scales: the codes are cast to q's
+    dtype, scores[n, h, l] are multiplied by scale_k[l, h] before the bias
+    and the softmax, and the weights by scale_v[l, h] before the value sum,
+    each scale cast to the dtype of what it multiplies (as JAX casts them).
+    Slots after ``pos`` get the -1e9 bias -> (N, D) in q's dtype."""
+    n, d = q.shape
+    length = cache_k.shape[0]
+    hd = d // n_head
+    bias = torch.where(torch.arange(length, device=q.device) <= int(pos), 0.0, NEG_INF)
+    qh = q.reshape(n, n_head, hd)
+    kh = cache_k.reshape(length, n, n_head, hd).to(q.dtype)
+    vh = cache_v.reshape(length, n, n_head, hd).to(q.dtype)
+    scores = torch.einsum("nhd,knhd->nhk", qh, kh) / torch.sqrt(
+        torch.tensor(float(hd), dtype=q.dtype, device=q.device))
+    scores = scores * scale_k.T[None].to(scores.dtype)  # (1, H, L)
+    scores = scores + bias.to(scores.dtype).reshape(1, 1, length)
+    w = torch.softmax(scores, dim=-1)
+    w = w * scale_v.T[None].to(w.dtype)
+    return torch.einsum("nhk,knhd->nhd", w, vh).reshape(n, d)

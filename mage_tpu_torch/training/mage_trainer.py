@@ -29,7 +29,7 @@ from __future__ import annotations
 
 import json
 import os
-from typing import Any, Mapping, Optional
+from typing import Any, Callable, Mapping, Optional
 
 import torch
 
@@ -74,12 +74,15 @@ def train_loss(pipeline: MagePipeline, terms: dict, beta, alpha) -> torch.Tensor
 
 
 def make_mage_train_step(pipeline: MagePipeline, optimizer: torch.optim.Optimizer,
-                         compute_dtype: Optional[torch.dtype] = None):
+                         compute_dtype: Optional[torch.dtype] = None,
+                         loss: Callable = train_loss):
     """-> ``train_step(batch, lr, beta, alpha, generator=None,
     posterior_noise=None, first_stage_noise=None)``: one update of the
     core's parameters in place; returns the detached terms. ``beta`` is the
     fixed KL weight, or under auto-beta the (3,) PID state. After the call
-    each parameter's ``grad`` holds this step's gradient."""
+    each parameter's ``grad`` holds this step's gradient. ``loss(pipeline,
+    terms, beta, alpha)`` makes the step's loss from the raw terms
+    (``train_loss``, or the e2e chains' own weighting)."""
     core = pipeline.core
 
     def train_step(batch: Mapping[str, Any], lr: float, beta, alpha: float,
@@ -95,7 +98,7 @@ def make_mage_train_step(pipeline: MagePipeline, optimizer: torch.optim.Optimize
             batch, train=True, params=params, compute_dtype=compute_dtype,
             generator=generator, posterior_noise=posterior_noise,
             first_stage_noise=first_stage_noise)
-        train_loss(pipeline, terms, beta, alpha).backward()
+        loss(pipeline, terms, beta, alpha).backward()
         optimizer.step()
         return {k: v.detach() for k, v in terms.items()}
 

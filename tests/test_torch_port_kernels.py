@@ -334,3 +334,91 @@ def test_straight_through_gradients_on_the_card_equal_the_cpus(gen, n, k, d):
     assert torch.equal(idx, idx_c) and torch.equal(codes, codes_c)
     assert torch.equal(gz, gz_c)
     torch.testing.assert_close(gcb, gcb_c, rtol=1e-5, atol=1e-5 * float(gcb_c.abs().max()))
+
+
+# ---- the quantized KV cache: plain PyTorch on the card, no kernel ----------------
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_quantized_cache_attention_on_the_card_equals_the_cpus(gen, bits):
+    """``quantize_kv_slot`` on the card gives the CPU's codes and scales bit
+    for bit (true divisions), and ``cached_slot_attention_quant`` at every
+    ``pos`` agrees with the CPU's within 1e-5 relative, f32, at the main
+    path's N, L and D, without a launch of the cached-attention kernel."""
+    n, length, d, heads = 8192, 16, 512, 16
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x = torch.randn(2 * length, n, d, generator=gen, device="cuda")
+    codes, scales = zip(*(ca.quantize_kv_slot(s, heads, bits) for s in x))
+    for s, c, sc in zip(x[:3], codes, scales):
+        c_cpu, sc_cpu = ca.quantize_kv_slot(s.cpu(), heads, bits)
+        assert torch.equal(c.cpu(), c_cpu) and torch.equal(sc.cpu(), sc_cpu)
+    ck, cv = torch.stack(codes[:length]), torch.stack(codes[length:])
+    sk, sv = torch.cat(scales[:length]), torch.cat(scales[length:])
+    q = torch.randn(n, d, generator=gen, device="cuda")
+    before = ca.KERNEL.launches
+    for pos in (0, 7, length - 1):
+        got = ca.cached_slot_attention_quant(q, ck, cv, sk, sv, pos, heads).cpu()
+        want = ca.cached_slot_attention_quant(q.cpu(), ck.cpu(), cv.cpu(), sk.cpu(), sv.cpu(),
+                                              pos, heads)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * float(want.abs().max()))
+    assert ca.KERNEL.launches == before
+
+
+def _small_pipeline(device, kv_quant):
+    from mage_tpu_torch.models.pipeline import MagePipeline
+
+    config = dict(
+        first_stage_config={"target": "mage_tpu.models.vqvae.VectorQuantizedVAE",
+                            "params": {"input_dim": 3, "down_ratio": 8, "dim": 8, "K": 32}},
+        text_encoder_config={"params": {"vocab_size": 30, "context_length": 12,
+                                        "transformer_width": 64, "transformer_layers": 1,
+                                        "output_dim": 64}},
+        ma_config={"params": {"layers": 1, "d_model": 64}},
+        generate_decoder_config={"params": {"layers": 3, "model_channels": 64,
+                                            "in_channels": 64, "out_channels": 32,
+                                            "frames_length": 4}},
+        codebook_size=32, frames_length=4, image_resolution=8, vision_width=64,
+        use_cids=True)
+    return MagePipeline(**config, device=device, seed=0, kv_quant=kv_quant)
+
+
+@pytest.mark.parametrize("kv_quant", ["int8", "int4"])
+def test_quantized_decode_slot_on_the_card_equals_the_cpus(gen, kv_quant):
+    """One quantized ``decode_slot`` (the anchor at 0, a frame at 1) on the
+    card against the CPU, f32, the same weights: trunk within 1e-4 of its
+    largest value, codes equal but for a rounding flip in at most 1e-4 of
+    them, scales within 1e-6 relative."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    for dev in ("cuda", "cpu"):
+        pipe = _small_pipeline(dev, kv_quant)
+        dec = pipe.core.generate_model
+        cache = dec.init_cache(2, 8, 8, torch.float32, dev)
+        anchor = torch.randn(2, 8, 8, 64, generator=torch.Generator().manual_seed(1)).to(dev)
+        slot = torch.randn(2, 8, 8, 64, generator=torch.Generator().manual_seed(2)).to(dev)
+        with torch.no_grad():
+            pipe.core.eval()
+            dec.decode_slot(anchor, 0, cache, is_anchor=True)
+            trunk = dec.decode_slot(slot, 1, cache)
+        out[dev] = (trunk.cpu(), [t.cpu() for entry in cache.values() for t in entry])
+    (trunk, cache), (trunk_c, cache_c) = out["cuda"], out["cpu"]
+    torch.testing.assert_close(trunk, trunk_c, rtol=0, atol=1e-4 * float(trunk_c.abs().max()))
+    for t, t_c in zip(cache, cache_c):
+        if t.dtype == torch.int8:
+            assert (t != t_c).float().mean() <= 1e-4 and (t - t_c).abs().max() <= 1
+        else:
+            torch.testing.assert_close(t, t_c, rtol=1e-6, atol=0)
+
+
+def test_generate_cached_with_an_int8_cache_launches_no_cached_kernel(gen):
+    pipe = _small_pipeline("cuda", "int8")
+    lat0 = torch.randint(0, 32, (2, 1, 8, 8), generator=gen, device="cuda", dtype=torch.int32)
+    text = torch.randint(3, 29, (2, 12), generator=gen, device="cuda")
+    before, axial = ca.KERNEL.launches, ax.KERNEL.launches
+    ids = pipe.core.generate_cached(lat0, text, torch.rand(2, generator=gen, device="cuda"))
+    assert ids.shape == (2, 3, 8, 8)
+    assert ca.KERNEL.launches == before
+    assert ax.KERNEL.launches == axial + 2 * 4  # the spatial blocks still launch theirs
+    pipe.core.generate_model.kv_quant = None
+    pipe.core.generate_cached(lat0, text, torch.rand(2, generator=gen, device="cuda"))
+    assert ca.KERNEL.launches == before + 4  # one temporal block, 4 slots

@@ -208,6 +208,10 @@ def test_package_imports_with_jax_and_mage_tpu_blocked():
         "    cater_vqvae_store, mnist_common, mnist_double, mnist_double_modified,\n"
         "    mnist_single)\n"
         "from mage_tpu_torch.cli import main_mage, train_autoencoder_kl, train_vqvae\n"
+        "from mage_tpu_torch.cli import (train_cater_e2e, train_cater_kl_e2e,\n"
+        "    train_mnist2_e2e, train_mnist_e2e, train_mnist_kl_e2e)\n"
+        "import mage_tpu_torch.training.e2e, mage_tpu_torch.evals\n"
+        "from mage_tpu_torch.evals import fvd, i3d, metrics\n"
         "print('ok')\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
@@ -228,7 +232,7 @@ def test_no_jax_or_mage_tpu_import_in_the_port():
     assert not hits, hits
     package = ROOT / "mage_tpu_torch"
     scanned = {f.relative_to(package).parts[0] for f in files if package in f.parents}
-    assert {"cli", "compat", "data", "models", "ops", "training", "utils"} <= scanned
+    assert {"cli", "compat", "data", "evals", "models", "ops", "training", "utils"} <= scanned
     assert _FORBIDDEN.search("from mage_tpu.ops import vq")
     assert not _FORBIDDEN.search("from mage_tpu_torch.ops import vq")
 
@@ -241,5 +245,6 @@ def test_every_port_directory_with_modules_is_an_installed_package():
     found = set(setuptools.find_packages(str(ROOT), include=["mage_tpu*"]))
     dirs = {f.parent.relative_to(ROOT) for f in (ROOT / "mage_tpu_torch").rglob("*.py")}
     wanted = {".".join(d.parts) for d in dirs}
-    assert {"mage_tpu_torch.data", "mage_tpu_torch.data.generators", "mage_tpu_torch.cli"} <= wanted
+    assert {"mage_tpu_torch.data", "mage_tpu_torch.data.generators", "mage_tpu_torch.cli",
+            "mage_tpu_torch.evals"} <= wanted
     assert wanted <= found, sorted(wanted - found)
