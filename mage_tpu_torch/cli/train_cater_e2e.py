@@ -69,6 +69,7 @@ def build_parser():
     p.add_argument("--tiny", action="store_true")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device; cpu runs the kernels' plain versions")
+    e2e.add_fvd_extractor_args(p)
     return p
 
 
@@ -356,7 +357,8 @@ def eval_generation(args, pipeline, dev, compact, ids, split, out_dir):
     })
     recon_np = recon_gt.cpu().numpy().astype(np.float64)[:, 1:]
     e2e.log_fvd(out_dir, split, dataset_name(args), gt_np[:, 1:], gen_np, recon_np,
-                batch_size=4, device=device)
+                batch_size=4, device=device,
+                i3d_checkpoint=args.i3d_checkpoint, extractor_dir=args.fvd_extractor)
     e2e.write_side_gifs(out_dir, split, gt_np, gen_np, args.gifs)
     return mse_gen
 

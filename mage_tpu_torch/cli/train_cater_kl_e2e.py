@@ -80,9 +80,12 @@ def build_parser():
     p.add_argument("--gifs", type=int, default=6)
     p.add_argument("--bf16", action="store_true", default=True)
     p.add_argument("--no-bf16", dest="bf16", action="store_false")
-    p.add_argument("--tiny", action="store_true")
+    p.add_argument("--tiny", action="store_true",
+                   help="smoke-test scale: shrinks only the flags left at their defaults "
+                        "(JAX's train_cater_kl_e2e.py --tiny overrides explicit flags too)")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device; cpu runs the kernels' plain versions")
+    e2e.add_fvd_extractor_args(p)
     return p
 
 
@@ -259,7 +262,8 @@ def eval_generation(args, pipeline, dev, compact, mom, split, out_dir):
     })
     recon_np = recon_gt.cpu().numpy().astype(np.float64)[:, 1:]
     e2e.log_fvd(out_dir, split, "CATER-GEN-v2", gt_np[:, 1:], gen_np, recon_np,
-                batch_size=4, device=device)
+                batch_size=4, device=device,
+                i3d_checkpoint=args.i3d_checkpoint, extractor_dir=args.fvd_extractor)
     e2e.write_side_gifs(out_dir, split, gt_np, gen_np, args.gifs)
     strip = np.concatenate([vids[k, 0] for k in range(min(K, 4))], axis=2)
     save_gif(strip, os.path.join(out_dir, "gifs", f"{split}_diversity.gif"))

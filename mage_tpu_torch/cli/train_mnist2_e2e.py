@@ -78,9 +78,13 @@ def build_parser():
     p.add_argument("--codebook-restart", action="store_true",
                    help="re-seed dead codebook entries every other epoch "
                         "from encoder features (off = reference parity)")
-    p.add_argument("--tiny", action="store_true")
+    p.add_argument("--tiny", action="store_true",
+                   help="smoke-test scale: shrinks only the flags left at their defaults "
+                        "(JAX's train_mnist2_e2e.py --tiny overrides every explicit flag but "
+                        "--stage2-epochs)")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device; cpu runs the kernels' plain versions")
+    e2e.add_fvd_extractor_args(p)
     return p
 
 
@@ -260,7 +264,8 @@ def eval_generation(args, pipeline, dev, ids, split, out_dir):
         "recon_direction_acc_ceiling": mm_ceil["initial_direction_acc"],
     })
     e2e.log_fvd(out_dir, split, "MovingMNIST", to_rgb(gt_np[:, 1:]), to_rgb(video_np),
-                to_rgb(recon_np[:, 1:]), batch_size=8, device=device)
+                to_rgb(recon_np[:, 1:]), batch_size=8, device=device,
+                i3d_checkpoint=args.i3d_checkpoint, extractor_dir=args.fvd_extractor)
     e2e.write_side_gifs(out_dir, split, gt_np, video_np, args.gifs, scale=2.0)
     return mse_gen
 

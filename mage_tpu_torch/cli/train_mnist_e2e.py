@@ -75,7 +75,9 @@ def build_parser():
     p.add_argument("--early-loss-weight", type=float, default=0.0,
                    help="opt-in early-frame loss upweighting (MAGECore.early_loss_weight)")
     p.add_argument("--early-loss-frames", type=int, default=3)
-    p.add_argument("--tiny", action="store_true", help="smoke-test scale")
+    p.add_argument("--tiny", action="store_true",
+                   help="smoke-test scale: shrinks only the flags left at their defaults "
+                        "(JAX's train_mnist_e2e.py --tiny overrides explicit flags too)")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device; cpu runs the kernels' plain versions")
     return p

@@ -78,9 +78,12 @@ def build_parser():
     p.add_argument("--gifs", type=int, default=4)
     p.add_argument("--bf16", action="store_true", default=True)
     p.add_argument("--no-bf16", dest="bf16", action="store_false")
-    p.add_argument("--tiny", action="store_true")
+    p.add_argument("--tiny", action="store_true",
+                   help="smoke-test scale: shrinks only the flags left at their defaults "
+                        "(JAX's train_mnist_kl_e2e.py --tiny overrides explicit flags too)")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device; cpu runs the kernels' plain versions")
+    e2e.add_fvd_extractor_args(p)
     return p
 
 
@@ -321,7 +324,8 @@ def eval_generation(args, pipeline, dev, mom, split, out_dir):
         DiagonalGaussian(mom[:g][arange[:, None], pos].float()).mode())
     recon_np = recon.float().cpu().numpy()[:, 1:]
     e2e.log_fvd(out_dir, split, "MovingMNIST", to_rgb(gt_np), to_rgb(vid_c_np),
-                to_rgb(recon_np), batch_size=8, device=device)
+                to_rgb(recon_np), batch_size=8, device=device,
+                i3d_checkpoint=args.i3d_checkpoint, extractor_dir=args.fvd_extractor)
     e2e.write_side_gifs(out_dir, split, gt.cpu().numpy(), vid_c_np, args.gifs, scale=2.0)
     # diversity strip: K draws of prompt 0 side by side
     strip = np.concatenate([vids[k, 0] for k in range(min(K, 4))], axis=2)

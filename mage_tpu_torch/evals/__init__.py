@@ -1,3 +1,3 @@
-"""Evaluation: video metrics, the I3D feature network and FVD."""
+"""Evaluation: video metrics, the I3D feature network, FVD and caption precision."""
 
 from mage_tpu_torch.evals.metrics import psnr

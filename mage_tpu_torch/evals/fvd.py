@@ -75,25 +75,34 @@ def fvd_same_split_floor(
                             return_regularized=return_regularized)
 
 
+DEFAULT_EXTRACTOR_DIRS = ("runs/fvd_extractor", "runs/fvd_extractor_mnist")
+
+
 def resolve_extractor(dataset: Optional[str] = None, batch_size: int = 8, *,
                       i3d_checkpoint: Optional[str] = None,
                       extractor_dir: Optional[str] = None, device=None):
     """The FVD feature extractor -> ``(extract_fn, provenance, feature_dim)``,
-    in order of preference:
+    in JAX's order of preference:
 
     1. ``i3d_checkpoint``: a pytorch-i3d Kinetics checkpoint, loaded
        strictly, logits endpoint (400-d); a named file that is missing
        raises;
-    2. ``extractor_dir``: an action-trained trunk from
-       ``train_fvd_extractor.py``, which the port does not have yet: naming
-       one raises ``NotImplementedError`` rather than falling back;
+    2. an action-trained trunk from ``cli.train_fvd_extractor``
+       (``i3d.load_trained_extractor``, Mixed_4f, 832-d) whose
+       ``provenance.json`` names the family of ``dataset`` (CATER v1 and v2
+       are one family): ``extractor_dir`` if given, which must fit (no
+       ``provenance.json``, or no ``dataset`` from the caller, raises
+       ``FileNotFoundError``; another family raises ``ValueError``), else
+       each of ``DEFAULT_EXTRACTOR_DIRS`` (relative to the working
+       directory), skipped when it does not fit;
     3. the random-init fallback: I3D weights drawn from a
        ``torch.Generator`` seeded 42, Mixed_3c endpoint (480-d). Its
        features are not the JAX package's (another generator), so FVDs of
        the two packages are comparable only through their floors.
 
-    ``dataset`` names the eval set (the trained-extractor branch checks its
-    family). The provenance string goes beside every FVD."""
+    The provenance string goes beside every FVD."""
+    import json
+
     from mage_tpu_torch.evals import i3d
 
     if i3d_checkpoint:
@@ -105,11 +114,33 @@ def resolve_extractor(dataset: Optional[str] = None, batch_size: int = 8, *,
         return (i3d.make_extractor(state, batch_size, "logits", device),
                 f"pytorch-i3d {os.path.basename(i3d_checkpoint)} (Kinetics), "
                 f"endpoint logits", len(state["logits.conv3d.bias"]))
-    if extractor_dir:
-        raise NotImplementedError(
-            f"extractor_dir={extractor_dir!r} (dataset {dataset!r}): the trained FVD "
-            f"extractor (train_fvd_extractor.py) is not ported yet; refusing to fall "
-            f"back to the random-init extractor")
+
+    for path in [extractor_dir] if extractor_dir else DEFAULT_EXTRACTOR_DIRS:
+        prov_path = os.path.join(path, "provenance.json")
+        if not (os.path.exists(prov_path) and dataset is not None):
+            if extractor_dir:  # an explicit request fails loudly, never falls back
+                raise FileNotFoundError(
+                    f"extractor_dir={extractor_dir!r}: provenance.json missing (or "
+                    f"dataset=None at the call site); refusing to fall back to the "
+                    f"random-init extractor the caller asked to avoid")
+            continue
+        with open(prov_path) as fp:
+            trained_on = json.load(fp).get("dataset", "")
+        # v1 and v2 share the visual world: an extractor trained on either
+        # CATER family member transfers to the other
+        if trained_on.split("-")[0] != str(dataset).split("-")[0]:
+            if extractor_dir:
+                raise ValueError(
+                    f"extractor_dir={extractor_dir!r}: trained on {trained_on!r} but the "
+                    f"eval dataset is {dataset!r}; refusing the family mismatch")
+            continue
+        try:
+            return i3d.load_trained_extractor(path, batch_size, device)
+        except FileNotFoundError:
+            if extractor_dir:
+                raise
+            continue
+
     return (i3d.random_extractor(batch_size, RANDOM_INIT_SEED, device),
             f"random-init torch.Generator seed {RANDOM_INIT_SEED}, endpoint Mixed_3c "
             f"(not the JAX package's random weights; deep random features "

@@ -18,6 +18,11 @@ With random weights the deep stack mean-field-collapses (every video maps to
 nearly the same logits), so a random-init extractor must stop at the shallow
 ``Mixed_3c`` endpoint, where random projections still discriminate
 (``mage_tpu/evals/i3d.py``'s I3D docstring has the measurement).
+
+``LabelI3D`` is ``train_fvd_extractor``'s classifier: the I3D trunk cut at
+``Mixed_4f`` (``I3D(trunk=True)``, which builds no layer past its endpoint,
+as flax creates none) and a linear multi-label head. Its trunk, saved with
+pytorch-i3d keys, is what ``load_trained_extractor`` reads.
 """
 
 from __future__ import annotations
@@ -64,9 +69,34 @@ def max_pool_same(x: torch.Tensor, window, stride) -> torch.Tensor:
     return F.max_pool3d(x, window, stride)
 
 
+class BatchNorm3d(nn.BatchNorm3d):
+    """flax's ``nn.BatchNorm(momentum=0.9, epsilon=1e-3)`` under
+    ``nn.BatchNorm3d``'s keys (NCTHW). Train mode normalises by the batch
+    statistics and moves the running averages 0.1 of the way to them, the
+    variance being the biased one (torch's own update takes the unbiased
+    one), taken in the input's precision or f32, whichever is wider; eval
+    mode normalises by the running averages. The same treatment as
+    ``models.vqvae.BatchNorm2d``."""
+
+    def __init__(self, channels: int):
+        super().__init__(channels, eps=1e-3, momentum=0.1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x.to(torch.promote_types(x.dtype, torch.float32)),
+                                       dim=(0, 2, 3, 4), unbiased=False)
+            m = self.momentum
+            self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+            self.running_var.mul_(1.0 - m).add_(var, alpha=m)
+            self.num_batches_tracked.add_(1)
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+
+
 class Unit3D(nn.Module):
     """Conv3d (SAME padding, no bias unless ``use_bias``) + BatchNorm3d
-    (eps 1e-3, running statistics) + ReLU, keyed ``conv3d`` and ``bn``."""
+    (flax's, eps 1e-3) + ReLU, keyed ``conv3d`` and ``bn``."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel=(1, 1, 1),
                  stride=(1, 1, 1), use_bn: bool = True, activation: bool = True,
@@ -76,8 +106,7 @@ class Unit3D(nn.Module):
         self.activation = activation
         self.conv3d = nn.Conv3d(in_channels, out_channels, self.kernel, self.stride,
                                 bias=use_bias)
-        # momentum as pytorch-i3d's; it acts only in train mode
-        self.bn = nn.BatchNorm3d(out_channels, eps=1e-3, momentum=0.01) if use_bn else None
+        self.bn = BatchNorm3d(out_channels) if use_bn else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.conv3d(F.pad(x, _same_pads(x.shape[2:], self.kernel, self.stride)))
@@ -107,16 +136,20 @@ class InceptionModule(nn.Module):
 class I3D(nn.Module):
     """Inflated Inception-V1 with a ``num_classes`` head. ``forward`` takes
     (N, T, H, W, 3) and returns the logits (pre-softmax), or with another
-    ``endpoint`` the features of that stage averaged over T, H and W. Every
-    layer exists whatever the endpoint, so a full checkpoint loads
-    strictly."""
+    ``endpoint`` the features of that stage averaged over T, H and W. The
+    full form builds every layer whatever the endpoint, so a Kinetics
+    checkpoint loads strictly; the ``trunk`` form builds the layers up to
+    its endpoint only (no head), the layers a trained trunk has."""
 
-    def __init__(self, num_classes: int = 400, endpoint: str = "logits"):
+    def __init__(self, num_classes: int = 400, endpoint: str = "logits",
+                 trunk: bool = False):
         super().__init__()
-        if endpoint not in ENDPOINTS:
+        if endpoint not in ENDPOINTS or (trunk and endpoint == "logits"):
             # an unknown endpoint must not fall through to the logits, the
             # feature that collapses on random weights
-            raise ValueError(f"unknown I3D endpoint {endpoint!r}; expected one of {ENDPOINTS}")
+            raise ValueError(f"unknown I3D endpoint {endpoint!r}"
+                             f"{' for a trunk' if trunk else ''}; expected one of "
+                             f"{ENDPOINTS[1:] if trunk else ENDPOINTS}")
         self.endpoint = endpoint
         self.Conv3d_1a_7x7 = Unit3D(3, 64, (7, 7, 7), (2, 2, 2))
         self.Conv3d_2b_1x1 = Unit3D(64, 64)
@@ -125,6 +158,8 @@ class I3D(nn.Module):
         for name, out in INCEPTIONS.items():
             self.add_module(name, InceptionModule(cin, out))
             cin = out[0] + out[2] + out[4] + out[5]
+            if trunk and name == endpoint:
+                return
         self.logits = Unit3D(cin, num_classes, use_bn=False, activation=False,
                              use_bias=True)
 
@@ -170,12 +205,17 @@ def make_extractor(state_dict: Mapping[str, Any], batch_size: int = 8,
     [-1, 1] -> (N, D) f32 numpy features, in ``batch_size`` chunks, from an
     I3D strictly loaded with ``state_dict`` (pytorch-i3d keys; tensors or
     numpy arrays) on ``device`` (the card unless the caller asks for the
-    CPU). The canonical feature fn for ``fvd.compute_fvd``; random weights
-    want ``endpoint="Mixed_3c"``."""
+    CPU): the full form when the dict has the logits layer, else the trunk
+    form cut at ``endpoint``; a missing or an unexpected key raises. The
+    canonical feature fn for ``fvd.compute_fvd``; random weights want
+    ``endpoint="Mixed_3c"``."""
     from mage_tpu_torch.models.pipeline import resolve_device
 
     dev = resolve_device(device)
-    model = I3D(num_classes=len(state_dict["logits.conv3d.bias"]), endpoint=endpoint)
+    if "logits.conv3d.bias" in state_dict:
+        model = I3D(num_classes=len(state_dict["logits.conv3d.bias"]), endpoint=endpoint)
+    else:
+        model = I3D(endpoint=endpoint, trunk=True)
     model.load_state_dict({k: torch.as_tensor(v) for k, v in state_dict.items()}, strict=True)
     model.to(dev).eval()
 
@@ -196,3 +236,74 @@ def random_extractor(batch_size: int = 8, seed: int = 42, device: Optional[Any] 
     """The random-init fallback: ``random_state_dict(seed)`` at the
     ``Mixed_3c`` endpoint (480-d features)."""
     return make_extractor(random_state_dict(seed), batch_size, "Mixed_3c", device)
+
+
+class LabelI3D(nn.Module):
+    """``train_fvd_extractor``'s classifier: the I3D trunk cut at
+    ``Mixed_4f`` (832-d, globally averaged) under ``i3d.`` and a linear
+    multi-label head (``head``). Only the trunk is exported for FVD."""
+
+    def __init__(self, n_labels: int):
+        super().__init__()
+        self.i3d = I3D(endpoint="Mixed_4f", trunk=True)
+        self.head = nn.Linear(FEATURE_DIMS["Mixed_4f"], n_labels)
+
+    def forward(self, videos: torch.Tensor) -> torch.Tensor:
+        return self.head(self.i3d(videos))
+
+
+def init_label_i3d(model: LabelI3D, generator: torch.Generator) -> None:
+    """flax's default init of JAX's ``LabelI3D``, drawn from ``generator``:
+    LeCun-normal conv and head kernels (truncated, variance 1/fan_in), zero
+    head bias, BatchNorm at scale 1, shift 0, running mean 0, variance 1."""
+    from mage_tpu_torch.models.layers import lecun_normal_
+
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, (nn.Conv3d, nn.Linear)):
+                lecun_normal_(m.weight, generator)
+                if m.bias is not None:
+                    m.bias.zero_()
+            elif isinstance(m, nn.BatchNorm3d):
+                m.reset_parameters()
+
+
+PROVENANCE = "action-trained I3D (train_fvd_extractor.py), endpoint Mixed_4f"
+
+
+def load_trained_extractor(path: str, batch_size: int = 8, device=None):
+    """The FVD feature fn of a ``train_fvd_extractor`` run's action-trained
+    trunk -> ``(extract_fn, provenance_str, 832)``.
+
+    ``path`` is the run's ``<out>``, its ``<out>/i3d`` or the checkpoint
+    ``<out>/i3d/best``: the trunk's pytorch-i3d state dict saved by the
+    port's ``Checkpointer``, loaded strictly into the trunk form (endpoint
+    ``Mixed_4f``). The provenance is JAX's text, with the validation
+    accuracies and the generator seed of ``<out>/provenance.json`` when it
+    is there. Raises ``FileNotFoundError`` when there is no checkpoint. The
+    JAX package's orbax checkpoint directories are not read: the port has
+    no orbax."""
+    import json
+    import os
+
+    from mage_tpu_torch.training.checkpoint import Checkpointer
+
+    root = path
+    if os.path.isfile(os.path.join(path, "i3d", "best")):
+        root = os.path.join(path, "i3d")
+    elif os.path.basename(os.path.normpath(path)) == "best":
+        root = os.path.dirname(os.path.normpath(path))
+    if not os.path.isfile(os.path.join(root, "best")):
+        raise FileNotFoundError(f"no trained FVD extractor under {path}")
+    state = Checkpointer(root).restore("best", map_location="cpu")
+    prov = PROVENANCE
+    prov_path = os.path.join(os.path.dirname(os.path.abspath(root)), "provenance.json")
+    if os.path.exists(prov_path):
+        with open(prov_path) as fp:
+            p = json.load(fp)
+        prov += (f"; val action acc per-label "
+                 f"{p.get('val_action_acc_per_label', float('nan')):.3f}, "
+                 f"exact-set {p.get('val_action_acc_exact_set', float('nan')):.3f}, "
+                 f"generator seed {p.get('generator_seed')}")
+    return (make_extractor(state, batch_size, "Mixed_4f", device), prov,
+            FEATURE_DIMS["Mixed_4f"])

@@ -31,6 +31,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from mage_tpu_torch.models.layers import lecun_normal_
 from mage_tpu_torch.ops.gn_conv import gn_silu_conv3x3
 
 def _nchw(x: torch.Tensor) -> torch.Tensor:
@@ -262,7 +263,10 @@ class Decoder(nn.Module):
 class AutoencoderKL(nn.Module):
     """The ldm KL autoencoder with the JAX package's constructor (the
     ``ddconfig`` fields flattened). ``logvar_bias`` shifts the predicted
-    log-variance, as in the JAX package."""
+    log-variance, as in the JAX package. Its convs start from flax's
+    default init (``init_conv_``, which ``pipeline.init_weights`` reads)."""
+
+    init_conv_ = staticmethod(lecun_normal_)
 
     def __init__(self, embed_dim: int = 4, ch: int = 128, ch_mult: Sequence[int] = (1, 2, 4, 4),
                  num_res_blocks: int = 2, in_channels: int = 3, out_ch: int = 3,

@@ -42,6 +42,21 @@ NEG_INF = -1e9  # additive mask value, as in the JAX package
 SPATIAL_ATTN = ("flat", "fusedblock")  # routes of an unmasked (H or W) block
 
 
+def lecun_normal_(p: torch.Tensor, generator: torch.Generator) -> None:
+    """In place: flax's default kernel init, ``variance_scaling(1, "fan_in",
+    "truncated_normal")`` (fan_in: every dimension of a torch weight but the
+    first): a normal cut at two of its standard deviations and widened by
+    1 / 0.8796 so that the cut values have variance 1/fan_in. Drawn by the
+    inverse CDF from one uniform per value, on the CPU, so that a seed gives
+    the same weights on every device and torch release
+    (``torch.nn.init.trunc_normal_`` rejection-samples in recent releases,
+    which takes a data-dependent number of draws and shifts every later one)."""
+    s = p[0].numel() ** -0.5 / 0.87962566103423978
+    b = math.erf(math.sqrt(2.0))  # erfinv maps U(-b, b) to normals cut at 2 sigma / sqrt 2
+    u = torch.empty(p.shape).uniform_(-b, b, generator=generator)
+    p.copy_(u.erfinv_().mul_(s * math.sqrt(2.0)).clamp_(-2 * s, 2 * s))
+
+
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
     """x * sigmoid(1.702 x)."""
     return x * torch.sigmoid(1.702 * x)

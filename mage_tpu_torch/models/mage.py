@@ -38,6 +38,7 @@ from mage_tpu_torch.models.layers import (
     BasicBlock3D,
     MAEncoder,
     TransformerTextEncoder,
+    lecun_normal_,
 )
 
 
@@ -325,6 +326,38 @@ class MAGECore(nn.Module):
             self.conv_var2 = nn.Conv2d(ma_d_model, 64, 3, padding=1)
             self.conv_d2 = nn.Conv2d(64, w, 3, padding=1, bias=False)
             self.adain = AdaIN2D(w)
+
+    @torch.no_grad()
+    def init_weights(self, generator: torch.Generator) -> None:
+        """The JAX core's distributions where they are not
+        ``pipeline.init_weights``' (which calls this after its pass, whose
+        draws for these tensors they replace): the decoder blocks' CLIP-style
+        scales (attention width^-0.5, projections width^-0.5 (2 layers)^-0.5,
+        MLP input (2 width)^-0.5; ``mage_tpu/models/mage.py:117-128``), LeCun
+        normals for the decoder's input, context and discrete head layers
+        (flax's default ``nn.Dense``) and for the 2D convs (flax's default
+        ``nn.Conv``), and He normals over fan-out for the posterior's 3D
+        convs."""
+
+        def normal_(p, std):
+            p.copy_(torch.randn(p.shape, generator=generator) * std)
+
+        dec = self.generate_model
+        mc = dec.model_channels
+        attn_std, fc_std = mc ** -0.5, (2 * mc) ** -0.5
+        proj_std = mc ** -0.5 * (2 * len(dec.blocks)) ** -0.5
+        for block in dec.blocks:
+            normal_(block.attn.in_proj_weight, attn_std)
+            normal_(block.attn.out_proj.weight, proj_std)
+            normal_(block.mlp.c_fc.weight, fc_std)
+            normal_(block.mlp.c_proj.weight, proj_std)
+        for lin in [dec.in_linear, dec.context_linear] + ([dec.out] if dec.use_cids else []):
+            lecun_normal_(lin.weight, generator)
+        for name, m in self.named_modules():
+            if isinstance(m, nn.Conv3d) and name.startswith("conv3d."):
+                normal_(m.weight, (2.0 / (m.weight.shape[0] * m.weight[0, 0].numel())) ** 0.5)
+            elif isinstance(m, nn.Conv2d):
+                lecun_normal_(m.weight, generator)
 
     # ---- pieces -----------------------------------------------------------
 

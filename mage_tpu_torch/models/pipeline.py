@@ -420,13 +420,17 @@ class MagePipeline:
 
 
 def init_weights(module: nn.Module, generator: torch.Generator) -> None:
-    """Random weights at the JAX package's init scales, drawn from
-    ``generator``: unit norms and zero biases, Xavier-uniform convs and
-    transposed convs, the
-    VQ codebook U(-1/K, 1/K), width^-0.5 positional and speed embeddings,
-    normal(0.02) for everything else. The continuous head's 1x1x1 conv
-    (``generate_model.out.2``) starts at zero, as in the JAX package (the
-    reference's ``zero_module``)."""
+    """Random weights drawn from ``generator`` from the JAX package's init
+    distributions for ``module`` (a ``MAGECore``, a VQ-VAE or a KL-AE):
+    unit norms and zero biases, the VQ codebook U(-1/K, 1/K), width^-0.5
+    positional and speed embeddings, normal(0.02) for the other embeddings
+    and the text and motion-anchor encoders' dense layers; convs and
+    transposed convs Xavier-uniform (the VQ-VAE's ``_conv_init``) unless the
+    model names its own ``init_conv_`` (the KL-AE: flax's LeCun normal). The
+    continuous head's 1x1x1 conv (``generate_model.out.2``) starts at zero,
+    as in the JAX package (the reference's ``zero_module``). A model with an
+    ``init_weights(generator)`` method (``MAGECore``) then draws its own
+    distributions where they differ from these."""
 
     def normal_(p, std):
         p.copy_(torch.randn(p.shape, generator=generator) * std)
@@ -434,6 +438,10 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
     def uniform_(p, bound):
         p.copy_((torch.rand(p.shape, generator=generator) * 2 - 1) * bound)
 
+    def xavier_uniform_(p, _):
+        uniform_(p, math.sqrt(6.0 / ((p.shape[0] + p.shape[1]) * math.prod(p.shape[2:]))))
+
+    init_conv_ = getattr(module, "init_conv_", xavier_uniform_)
     with torch.no_grad():
         for mname, m in module.named_modules():
             for leaf, p in m.named_parameters(recurse=False):
@@ -442,14 +450,15 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
                 elif leaf.endswith("bias") or mname.endswith("generate_model.out.2"):
                     p.zero_()
                 elif isinstance(m, (nn.Conv2d, nn.Conv3d, nn.ConvTranspose2d)):
-                    fans = (p.shape[0] + p.shape[1]) * math.prod(p.shape[2:])
-                    uniform_(p, math.sqrt(6.0 / fans))
+                    init_conv_(p, generator)
                 elif mname.endswith("codebook.embedding"):
                     uniform_(p, 1.0 / p.shape[0])
                 elif leaf.endswith("_embedding") and not isinstance(m, nn.Embedding):
                     normal_(p, p.shape[-1] ** -0.5)  # positional and speed
                 else:
                     normal_(p, 0.02)
+        if hasattr(module, "init_weights"):
+            module.init_weights(generator)
 
 
 def build_pipeline(config_path: str | os.PathLike = "config/mage_caterv1.yaml",

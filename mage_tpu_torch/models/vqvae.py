@@ -71,7 +71,8 @@ class BatchNorm2d(nn.BatchNorm2d):
             return super().forward(x)
         if self.update_stats:
             with torch.no_grad():
-                var, mean = torch.var_mean(x.float(), dim=(0, 2, 3), unbiased=False)
+                var, mean = torch.var_mean(x.to(torch.promote_types(x.dtype, torch.float32)),
+                                           dim=(0, 2, 3), unbiased=False)
                 m = self.momentum
                 self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
                 self.running_var.mul_(1.0 - m).add_(var, alpha=m)

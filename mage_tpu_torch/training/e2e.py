@@ -9,8 +9,7 @@ Port of ``mage_tpu/training/e2e.py``:
 - ``run_mage_plus_stage2``: the continuous stage-2 loop with the same-step
   PID auto-beta;
 - ``materialize``: the chunked encode-everything loop;
-- ``init_stage2_params``, ``log_metrics``, ``mse_to_psnr``, ``log_fvd``,
-  ``write_side_gifs``.
+- ``log_metrics``, ``mse_to_psnr``, ``log_fvd``, ``write_side_gifs``.
 
 Each chain supplies its dataset callbacks: frame composition on the device
 (``frames_at``), batch assembly (``batch_at``, ``val_batch_at``) and its
@@ -53,14 +52,17 @@ from mage_tpu_torch.training.pid import initial_pid_state
 from mage_tpu_torch.utils.media import save_gif
 
 
-def log_metrics(out_dir, record):
+def log_metrics(out_dir, record, name="e2e_metrics.json"):
     record = dict(record, time=time.time())
-    with open(os.path.join(out_dir, "e2e_metrics.json"), "a") as fp:
+    with open(os.path.join(out_dir, name), "a") as fp:
         fp.write(json.dumps(record) + "\n")
     print("METRIC", json.dumps(record), flush=True)
 
 
 def mse_to_psnr(mse, data_range=1.0):
+    """PSNR in dB of one MSE (-> float) or of a tensor of them (-> tensor)."""
+    if torch.is_tensor(mse):
+        return 10.0 * torch.log10(data_range**2 / torch.clamp(mse, min=1e-12))
     return float(10.0 * np.log10(data_range**2 / max(mse, 1e-12)))
 
 
@@ -330,45 +332,6 @@ def materialize(n: int, chunk: int, encode_chunk: Callable, device=None):
 # ---------------------------------------------------------------------------
 
 
-def init_stage2_params(pipeline, seed: int) -> None:
-    """The stage-2 core's weights drawn afresh from a generator seeded
-    ``seed``, with the distributions of the JAX core's flax init, so that a
-    chain trains as JAX's does (the values are not JAX's):
-    ``pipeline.init_weights`` (normal(0.02) for the text and motion-anchor
-    encoders and the token embedding, width^-0.5 positional embeddings,
-    unit norms, zero biases, the MAGE+ head's conv at zero), then the
-    decoder blocks' CLIP-style scales (attention width^-0.5, projections
-    width^-0.5 (2 layers)^-0.5, MLP input (2 width)^-0.5), LeCun normals
-    (variance 1/fan_in) for the decoder's input, context and discrete head
-    layers and for the 2D convs, and He normals over fan-out for the
-    posterior's 3D convs."""
-    core = pipeline.core
-    gen = torch.Generator().manual_seed(seed)
-    init_weights(core, gen)
-
-    def normal_(p, std):
-        p.copy_(torch.randn(p.shape, generator=gen) * std)
-
-    dec = core.generate_model
-    mc = dec.model_channels
-    attn_std, fc_std = mc ** -0.5, (2 * mc) ** -0.5
-    proj_std = mc ** -0.5 * (2 * len(dec.blocks)) ** -0.5
-    with torch.no_grad():
-        for block in dec.blocks:
-            normal_(block.attn.in_proj_weight, attn_std)
-            normal_(block.attn.out_proj.weight, proj_std)
-            normal_(block.mlp.c_fc.weight, fc_std)
-            normal_(block.mlp.c_proj.weight, proj_std)
-        lecun = [dec.in_linear, dec.context_linear] + ([dec.out] if dec.use_cids else [])
-        for lin in lecun:
-            normal_(lin.weight, lin.weight.shape[1] ** -0.5)
-        for name, m in core.named_modules():
-            if isinstance(m, torch.nn.Conv3d) and name.startswith("conv3d."):
-                normal_(m.weight, (2.0 / (m.weight.shape[0] * m.weight[0, 0].numel())) ** 0.5)
-            elif isinstance(m, torch.nn.Conv2d):
-                normal_(m.weight, m.weight[0].numel() ** -0.5)
-
-
 def fixed_beta_loss(pipeline, terms: dict, beta, alpha) -> torch.Tensor:
     """The discrete chains' loss: prediction + beta * KL (on the stochastic
     branch) + alpha * speed_l2, the alpha term whether or not the branch is
@@ -415,7 +378,6 @@ def run_mage_stage2(
     dev = pipeline.device
     alpha, beta = pipeline.alpha, pipeline.beta
     compute_dtype = torch.bfloat16 if args.bf16 else None
-    init_stage2_params(pipeline, args.seed)
     print(f"stage-2 params: {_n_params(pipeline.core):,}")
     optimizer = make_mage_optimizer(pipeline.core)
     train_step = make_mage_train_step(pipeline, optimizer, compute_dtype, loss=fixed_beta_loss)
@@ -489,7 +451,6 @@ def run_mage_plus_stage2(
     train step, the PID state checkpointed with the loop state."""
     dev = pipeline.device
     compute_dtype = torch.bfloat16 if args.bf16 else None
-    init_stage2_params(pipeline, args.seed)
     print(f"stage-2 params: {_n_params(pipeline.core):,}")
     optimizer = make_mage_optimizer(pipeline.core)
     train_step = make_mage_train_step(pipeline, optimizer, compute_dtype)
@@ -558,6 +519,19 @@ def apply_tiny(args, parser, values: dict) -> None:
             setattr(args, k, v)
 
 
+def add_fvd_extractor_args(parser) -> None:
+    """The chains' and ``eval_fvd_e2e``'s choice of FVD extractor (JAX's
+    ``MAGE_FVD_EXTRACTOR`` and ``MAGE_I3D_TORCH``), for
+    ``evals.fvd.resolve_extractor``."""
+    parser.add_argument("--fvd-extractor", default=None, metavar="DIR",
+                        help="a train_fvd_extractor run to embed the FVD clips (JAX's "
+                             "MAGE_FVD_EXTRACTOR); it must fit the dataset. Default: "
+                             "runs/fvd_extractor{,_mnist} where one fits, else random-init I3D")
+    parser.add_argument("--i3d-checkpoint", default=None, metavar="FILE",
+                        help="a pytorch-i3d Kinetics checkpoint for the FVD (JAX's "
+                             "MAGE_I3D_TORCH)")
+
+
 def shrink_stage2(params) -> None:
     """The ``--tiny`` stage-2 widths of every chain: width 64, a 1-layer
     text encoder, a 3-block decoder."""
@@ -571,9 +545,10 @@ def shrink_stage2(params) -> None:
 
 
 def build_stage2_pipeline(params, first_stage: torch.nn.Module, device, seed: int):
-    """``MagePipeline(**params)`` on ``device`` with ``first_stage``'s
-    trained weights strictly loaded into its frozen first stage (the
-    config's ``ckpt_path`` dropped)."""
+    """``MagePipeline(**params)`` on ``device``, its core at the JAX core's
+    init distributions drawn from ``seed`` (``pipeline.init_weights``), with
+    ``first_stage``'s trained weights strictly loaded into its frozen first
+    stage (the config's ``ckpt_path`` dropped)."""
     from mage_tpu_torch.models.pipeline import MagePipeline
 
     params.first_stage_config.params.pop("ckpt_path", None)

@@ -8,7 +8,8 @@ sprite-NCC action precision, PSNR and SSIM) must equal JAX's on the same
 arrays. Then every driver runs whole on the CPU below ``--tiny`` size (a few
 clips, 4 frames, one or two epochs): it must end with JAX's phases and
 record keys written, and a relaunch with more stage-2 epochs must resume at
-the next epoch from the ``last`` checkpoints.
+the next epoch from the ``last`` checkpoints (``run_chain``, called by the
+``test_torch_port_e2e_chain_*.py`` files).
 """
 
 import json
@@ -236,12 +237,26 @@ CHAINS = {
 }
 
 
+@pytest.fixture()
+def one_torch_thread():
+    """torch's CPU ops on one thread for the test: parallel pytest workers
+    share the machine's cores, and each worker's oversubscribed OpenMP
+    threads slowed the chains' convs about 7x (a chain 139 s against 20 s
+    beside five busy processes)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _records(out):
     return [json.loads(l) for l in (out / "e2e_metrics.json").read_text().splitlines()]
 
 
-@pytest.mark.parametrize("chain", list(CHAINS))
-def test_chain_runs_to_its_end_and_resumes(chain, tmp_path):
+def run_chain(chain, tmp_path):
+    """``test_chain_runs_to_its_end_and_resumes`` of one chain; each chain's
+    case lives in a file of its own (``test_torch_port_e2e_chain_*.py``) so
+    that the workers, which take a file each, run them side by side."""
     module, argv, phases = CHAINS[chain]
     out = tmp_path / chain
     module.main(argv + ["--out", str(out), "--stage2-epochs", "1"])

@@ -136,7 +136,8 @@ def test_resolve_extractor_branches(tmp_path):
     assert dim == 10 and "rgb_test.pt" in prov and ex(x).shape == (3, 10)
     with pytest.raises(FileNotFoundError):
         fvd.resolve_extractor(i3d_checkpoint=str(tmp_path / "missing.pt"), device="cpu")
-    with pytest.raises(NotImplementedError, match="refusing to fall back"):
+    # a named extractor directory without its provenance refuses to fall back
+    with pytest.raises(FileNotFoundError, match="refusing to fall back"):
         fvd.resolve_extractor("CATER-GEN-v2", extractor_dir=str(tmp_path), device="cpu")
     with pytest.raises(ValueError, match="unknown I3D endpoint"):
         i3d.I3D(endpoint="Mixed_5c")

@@ -211,7 +211,10 @@ def test_package_imports_with_jax_and_mage_tpu_blocked():
         "from mage_tpu_torch.cli import (train_cater_e2e, train_cater_kl_e2e,\n"
         "    train_mnist2_e2e, train_mnist_e2e, train_mnist_kl_e2e)\n"
         "import mage_tpu_torch.training.e2e, mage_tpu_torch.evals\n"
-        "from mage_tpu_torch.evals import fvd, i3d, metrics\n"
+        "from mage_tpu_torch.evals import fvd, i3d, metrics, precision\n"
+        "from mage_tpu_torch.cli import (eval_fvd_e2e, eval_precision, eval_speed_control,\n"
+        "    eval_speed_control_cater, train_fvd_extractor)\n"
+        "from mage_tpu_torch.compat import convert, reference\n"
         "print('ok')\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
