@@ -88,7 +88,28 @@ fatal on failure (exit code 1; 2 when there is no GPU or no package):
     ``cli.eval_speed_control_cater`` on the ``train_cater_e2e`` run, each
     with its launches held to the counts ``evals_steps`` predicts and every
     kernel launch at a new shape held against its plain version;
-14. one JSON line with every kernel's numbers, then the closing JSON line.
+14. the probes phase, in the same directory after the evals:
+    ``cli.probe_text_sensitivity`` on the ``train_mnist_e2e`` run (single)
+    and the ``train_mnist2_e2e`` run (double), ``cli.probe_direction_binding``
+    and ``cli.probe_direction_binding2`` on them, each with its launches
+    held to the counts ``probe_steps`` predicts, every kernel launch at a new
+    shape held against its plain version, and its JSON result printed with
+    its wall seconds;
+15. the rest of the package: MAGE with the BERT text head
+    (``BertTextualHead`` at bert-base-uncased's widths, random weights) in
+    place of the caption encoder, generating at the main path's shapes
+    (launches, frames/s, the text encoder's ms, peak memory) and, in f32 at
+    batch 2, the card's ids against the CPU's; one train step of a
+    spectral-norm ``BasicBlock3D`` pyramid on the card against the CPU
+    (``sigma``, ``u`` and the output within 1e-4 relative); ``profile_trace``
+    around one MAGE generate (the trace names the three kernels of the path;
+    the device's busy share of the span) and ``cost_analysis`` of one
+    ``decode_slot`` beside ``mage_decoder_flops``; ``MageTrainer`` on a
+    1-rank NCCL mesh (replicated, then ``fsdp: true``), 3 f32 steps whose
+    loss terms equal the plain trainer's within 1e-5 relative, batch-parallel
+    cached generation on that mesh equal to the plain ids, and
+    ``parallel.dryrun --devices 4`` over gloo;
+16. one JSON line with every kernel's numbers, then the closing JSON line.
 
 The cli phase also writes the trained MAGE core as a reference checkpoint
 (``{"state_dict": {"module." + key: tensor}}``), converts it with
@@ -2321,8 +2342,9 @@ def run_e2e_phase(torch, kernels, card: str) -> dict:
     s/step (CUDA events), materialize s, the FVD's s on the card
     (random-init I3D), peak GiB and the launches. Then the evals phase
     (``run_evals_phase``) on the runs of ``EVAL_RUNS``, in the same
-    directory and under the same probe -> (the chains' lines, the evals'
-    lines)."""
+    directory and under the same probe, and the probes phase
+    (``run_probes_phase``) -> (the chains' lines, the evals' lines, the
+    probes' lines)."""
     import tempfile
 
     from mage_tpu_torch.models.autoencoder_kl import AutoencoderKL, ResnetBlock
@@ -2375,12 +2397,13 @@ def run_e2e_phase(torch, kernels, card: str) -> dict:
                                 for r in rows}}
             log("e2e run: " + json.dumps(line))
             lines[name] = line
-            if name not in EVAL_RUNS:  # a full-width chain's checkpoints take gigabytes
-                shutil.rmtree(out_dir)
+            if name not in EVAL_RUNS + PROBE_RUNS:  # a full-width chain's checkpoints
+                shutil.rmtree(out_dir)               # take gigabytes
         log(f"e2e phase took {time.perf_counter() - t_phase:.1f} s")
         evals = run_evals_phase(torch, kernels, card, tmp, probe)
+        probes = run_probes_phase(torch, kernels, card, tmp, probe)
     torch.backends.cudnn.allow_tf32 = tf32
-    return lines, evals
+    return lines, evals, probes
 
 
 # ---- the evals phase -----------------------------------------------------------
@@ -2505,6 +2528,374 @@ def run_evals_phase(torch, kernels, card: str, tmp: str, probe) -> dict:
     return lines
 
 
+# ---- the probes phase -------------------------------------------------------
+
+# the chains' runs the probes read: single and double Moving MNIST
+PROBE_RUNS = ("train_mnist_e2e", "train_mnist2_e2e")
+
+
+def probe_steps(tmp: str) -> list:
+    """(label, entry point, argv, predicted launches) of the probes phase.
+    The text probe encodes every frame of its 16 clips in one call (vq 1) and
+    runs three teacher-forced eval-mode forwards through the 4 spatial blocks
+    (axial 12, no cached attention); a direction probe encodes the first
+    frames (vq 1) and runs one cached generate of L=16 frames (4L axial, 2L
+    cached); the ground-truth ceilings launch nothing."""
+    from mage_tpu_torch.cli import (probe_direction_binding, probe_direction_binding2,
+                                    probe_text_sensitivity)
+
+    single, double = (os.path.join(tmp, name) for name in PROBE_RUNS)
+    data = ["--num-train", "64", "--num-val", "16", "--device", "cuda"]  # the chains'
+    forward = {"vq_nearest": 1, "axial_slot_attention": 3 * 4}
+    generate = {"vq_nearest": 1, "axial_slot_attention": 4 * 16,
+                "cached_slot_attention": 2 * 16}
+    return [
+        ("probe_text_sensitivity single", probe_text_sensitivity.main,
+         ["--dataset", "single", "--run", single, "--videos", "16"] + data, forward),
+        ("probe_text_sensitivity double", probe_text_sensitivity.main,
+         ["--dataset", "double", "--run", double, "--videos", "16"] + data, forward),
+        ("probe_direction_binding", probe_direction_binding.main,
+         ["--run", single, "--videos", "16"] + data, generate),
+        ("probe_direction_binding2", probe_direction_binding2.main,
+         ["--run", double, "--videos", "16"] + data, generate),
+    ]
+
+
+def run_probes_phase(torch, kernels, card: str, tmp: str, probe) -> dict:
+    """The three probes through their ``main`` on the chains' runs in
+    ``tmp``: each call's launches must be ``probe_steps``', every kernel
+    launch at a new shape must hold against its plain version
+    (``E2eProbe.hold``), and every number of its result must be finite but
+    the agreement fractions (nan over no counted case, as the probes define
+    them). A line per probe (wall s, launches, held, the result) -> {label:
+    line}."""
+    t_phase = time.perf_counter()
+    lines = {}
+    for label, fn, argv, want in probe_steps(tmp):
+        probe.reset()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out, launches, routes = count_launches(torch, kernels, lambda: fn(argv))
+        wall = time.perf_counter() - t0
+        expect(launches, want, label)
+        held = probe.hold()
+        if set(held) != {k for k, n in launches.items() if n}:
+            raise AssertionError(f"{label}: held {sorted(held)}, launched {launches}")
+        bad = [k for k, v in out.items() if not all(map(math.isfinite, numbers(
+            {kk: vv for kk, vv in v.items() if not kk.endswith("_frac")}
+            if isinstance(v, dict) else v)))]
+        if bad:
+            raise AssertionError(f"{label}: non-finite {bad}")
+        line = {"run": label, "card": card, "wall_s": wall,
+                "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                "launches": {k: v for k, v in launches.items() if v}, "vq_variants": routes,
+                "held": held, "result": out}
+        log("probes run: " + json.dumps(line))
+        lines[label] = line
+    log(f"probes phase took {time.perf_counter() - t_phase:.1f} s")
+    return lines
+
+
+# ---- the rest of the package: BERT head, spectral norm, profiling, parallel -----
+
+# bert-base-uncased's published widths (transformers.BertConfig's defaults)
+BERT_BASE = {"vocab_size": 30522, "hidden_size": 768, "num_hidden_layers": 12,
+             "num_attention_heads": 12, "intermediate_size": 3072,
+             "max_position_embeddings": 512, "type_vocab_size": 2}
+MAIN_PATH_LAUNCHES = {"vq_nearest": 1, "axial_slot_attention": 4 * FRAMES,
+                      "cached_slot_attention": 2 * FRAMES}
+SPECTRAL_WIDTH, SPECTRAL_RTOL = 128, 1e-4
+
+
+def bert_pipeline(device: str):
+    """``config/mage_caterv1.yaml`` at L=16 with its caption encoder swapped
+    in code for the BERT head (``BertTextualHead``, bert-base widths, its
+    output at the motion-anchor width), random weights from seed 0 and no
+    first-stage checkpoint."""
+    from mage_tpu_torch.config import instantiate_from_config, load_config
+
+    cfg = load_config("config/mage_caterv1.yaml")
+    p = cfg.model.params
+    p.first_stage_config.params.pop("ckpt_path", None)
+    p.frames_length = FRAMES
+    p.generate_decoder_config.params.frames_length = FRAMES
+    p.text_encoder_config = {"target": "modules.mage_model.BertTextualHead",
+                             "params": {"out_dim": p.ma_config.params.d_model,
+                                        "bert_config": BERT_BASE}}
+    return instantiate_from_config(cfg.model, merge={"device": device, "seed": 0})
+
+
+def bert_ids(torch, np, device: str, dtype) -> tuple:
+    """Batch 2 through the BERT-head pipeline in ``dtype`` on ``device``
+    with one prior draw -> (first-frame ids, generated ids) on the host."""
+    batch = make_batch(np, 2, 32, seed=3)
+    noise = torch.randn(2, 16, 16, 64, generator=torch.Generator().manual_seed(4))
+    pipe = bert_pipeline(device)
+    pipe.to(dtype=dtype)
+    with torch.no_grad():
+        first = torch.from_numpy(batch["images"][:, :1]).to(device, dtype)
+        lat0 = pipe.first_stage.encode(first)
+        ids = pipe.core.generate_cached(
+            lat0, torch.from_numpy(batch["text"]).to(device),
+            torch.from_numpy(batch["speed"]).to(device, dtype),
+            video_noise=noise.to(device, dtype))
+    return lat0.cpu(), ids.cpu()
+
+
+def run_bert_phase(torch, np, kernels, card: str) -> dict:
+    """The BERT text head at full width: the main path's generate (batch 32,
+    16 frames, bf16) with its launches held to the main path's counts and
+    each kernel launch held against its plain version; frames/s (median of
+    3), the text encoder's ms (CUDA events) and peak memory; then in f32 at
+    batch 2 the card's ids against the CPU's (read against an f64 CPU run
+    where they differ) -> the line."""
+    pipe = bert_pipeline("cuda")
+    head = pipe.core.text_encoder
+    n_params = sum(p.numel() for p in head.parameters())
+    pipe.to(dtype=torch.bfloat16)
+    batch = make_batch(np, BATCH, 32)
+    gen = torch.Generator(device="cuda")
+    pipe.generate(batch, generator=gen.manual_seed(1), cached=True)  # warm-up
+    with E2eProbe(torch) as probe:
+        probe.reset()
+        video, launches, routes = count_launches(
+            torch, kernels, lambda: pipe.generate(batch, generator=gen.manual_seed(1),
+                                                  cached=True))
+        held = probe.hold()
+    expect(launches, MAIN_PATH_LAUNCHES, "BERT-head generate")
+    if tuple(video.shape) != (BATCH, FRAMES, RES, RES, 3) or not bool(
+            torch.isfinite(video.float()).all()):
+        raise AssertionError(f"BERT-head generate: shape {tuple(video.shape)} or non-finite")
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pipe.generate(batch, generator=gen.manual_seed(2 + i), cached=True)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    text = torch.from_numpy(batch["text"]).cuda()
+    with torch.no_grad():
+        text_ms = time_ms(lambda: head(text), iters=10)
+    line = {"card": card, "text_encoder": "BertTextualHead", "bert_params": n_params,
+            "batch": BATCH, "frames_length": FRAMES, "dtype": "bfloat16",
+            "launches": {k: v for k, v in launches.items() if v}, "vq_variants": routes,
+            "held": held, "generate_s": times,
+            "generated_frames_per_s": BATCH * (FRAMES - 1) / statistics.median(times),
+            "text_encoder_ms": text_ms,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    del pipe
+    torch.cuda.empty_cache()
+    (lat_g, ids_g), (lat_c, ids_c) = (bert_ids(torch, np, d, torch.float32)
+                                      for d in ("cuda", "cpu"))
+    line["f32_first_ids_equal"] = float((lat_g == lat_c).float().mean())
+    line["f32_ids_equal"] = float((ids_g == ids_c).float().mean())
+    if not torch.equal(lat_g, lat_c) or not torch.equal(ids_g, ids_c):
+        # a near-tie f32 cannot settle: the card no further from f64 than the CPU
+        _, ids_64 = bert_ids(torch, np, "cpu", torch.float64)
+        line["f64_ids_equal"] = {"card": float((ids_g == ids_64).float().mean()),
+                                 "cpu": float((ids_c == ids_64).float().mean())}
+        if line["f64_ids_equal"]["card"] < line["f64_ids_equal"]["cpu"]:
+            raise AssertionError(f"BERT-head f32 ids: {line}")
+    log("BERT-head generate: " + json.dumps(line))
+    return line
+
+
+def run_spectral_check(torch, card: str) -> dict:
+    """One train step (forward in train mode, backward, Adam) of a pyramid
+    of four spectral-norm ``BasicBlock3D``s (width ``SPECTRAL_WIDTH``, each
+    halving T as the posterior's do) on the card and on the CPU, f32 with
+    TF32 off: the output and every conv's stored ``sigma`` and ``u`` after
+    the step within ``SPECTRAL_RTOL`` of the CPU's, relative to the largest
+    value."""
+    import copy
+
+    from mage_tpu_torch.models.layers import BasicBlock3D, SpectralConv3d
+
+    torch.manual_seed(0)
+    w = SPECTRAL_WIDTH
+    model = torch.nn.Sequential(*[BasicBlock3D(w, w, stride_t=2, downsample=True,
+                                               spectral=True) for _ in range(4)])
+    x = torch.randn(2, w, 16, 16, 16, generator=torch.Generator().manual_seed(1))
+    outs = {}
+    for device in ("cuda", "cpu"):
+        m = copy.deepcopy(model).to(device).train()
+        opt = torch.optim.Adam(m.parameters(), lr=1e-3)
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            out = m(x.to(device))
+            out.square().mean().backward()
+        opt.step()
+        stats = {f"{name}.{b}": getattr(mod, b).detach().cpu()
+                 for name, mod in m.named_modules() if isinstance(mod, SpectralConv3d)
+                 for b in ("sigma", "u")}
+        outs[device] = (out.detach().cpu(), stats)
+    errs = {}
+    for key, (got, want) in {"output": (outs["cuda"][0], outs["cpu"][0]),
+                             **{k: (outs["cuda"][1][k], outs["cpu"][1][k])
+                                for k in outs["cpu"][1]}}.items():
+        errs[key] = float((got - want).abs().max() / want.abs().max())
+    worst = max(errs, key=errs.get)
+    line = {"card": card, "width": w, "convs": len(outs["cpu"][1]) // 2,
+            "output_rel_err": errs["output"], "worst": worst, "worst_rel_err": errs[worst],
+            "sigma": [float(v) for k, v in outs["cpu"][1].items() if k.endswith("sigma")]}
+    log("spectral BasicBlock3D train step, card vs CPU: " + json.dumps(line))
+    if errs[worst] > SPECTRAL_RTOL:
+        raise AssertionError(f"spectral norm: {worst} off by {errs[worst]}")
+    return line
+
+
+def busy_share(events: list) -> float:
+    """The share of the span of ``events`` (Chrome trace kernel events, ts
+    and dur in us) during which some kernel ran."""
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events)
+    busy, end = 0.0, spans[0][0]
+    for a, b in spans:
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    return busy / (end - spans[0][0])
+
+
+def run_profiling_check(torch, np, build_pipeline, kernels, card: str) -> dict:
+    """``profile_trace`` around one MAGE generate (the main path's shapes,
+    bf16): the trace must be non-empty JSON whose kernel events name the
+    vq, axial and cached-attention kernels, with the launches of the main
+    path; the device's busy share of the traced kernels' span and each port
+    kernel's summed device time are read from it. Then ``cost_analysis`` of
+    one ``decode_slot`` at the main shapes beside ``mage_decoder_flops``."""
+    import tempfile
+
+    from mage_tpu_torch.utils import profiling
+
+    pipe = build_pipeline("config/mage_caterv1.yaml", FRAMES, device="cuda", seed=0)
+    pipe.to(dtype=torch.bfloat16)
+    batch = make_batch(np, BATCH, 32)
+    gen = torch.Generator(device="cuda")
+    pipe.generate(batch, generator=gen.manual_seed(1), cached=True)  # warm-up
+    with tempfile.TemporaryDirectory() as tmp:
+        with profiling.profile_trace(tmp):
+            _, launches, _ = count_launches(
+                torch, kernels, lambda: pipe.generate(batch, generator=gen.manual_seed(1),
+                                                      cached=True))
+        path = os.path.join(tmp, profiling.TRACE_FILE)
+        size = os.path.getsize(path)
+        with open(path) as fp:
+            events = json.load(fp)["traceEvents"]
+    expect(launches, MAIN_PATH_LAUNCHES, "profiled generate")
+    kern = [e for e in events if str(e.get("cat", "")).lower() == "kernel" and "dur" in e]
+    ours = {}
+    for tag in ("vq_", "axial_attention", "cached_attention"):
+        mine = [e for e in kern if tag in e["name"]]
+        if not mine:
+            raise AssertionError(f"profile_trace: no {tag!r} kernel among "
+                                 f"{sorted({e['name'][:60] for e in kern})[:20]}")
+        ours[tag] = {"events": len(mine), "device_ms": sum(e["dur"] for e in mine) / 1e3}
+    gm = pipe.core.generate_model
+    cache = gm.init_cache(BATCH, 16, 16, torch.bfloat16, "cuda")
+    slot = torch.randn(BATCH, 16, 16, 512, device="cuda", dtype=torch.bfloat16)
+    with torch.no_grad():
+        counted = profiling.cost_analysis(gm.decode_slot, slot, 3, cache)
+    line = {"card": card, "trace_bytes": size, "events": len(events), "kernel_events": len(kern),
+            "kernels_device_ms": sum(e["dur"] for e in kern) / 1e3,
+            "busy_share": busy_share(kern), "port_kernels": ours,
+            # FlopCounterMode counts 2 FLOPs per multiply-add and skips the
+            # ctypes kernels; the JAX formula counts multiply-adds
+            "decode_slot_counted_flops": counted["flops"],
+            "decode_slot_formula_macs": profiling.mage_decoder_flops(512, 6, 1, 16) * BATCH,
+            "decode_slot_formula_x2": 2 * profiling.mage_decoder_flops(512, 6, 1, 16) * BATCH,
+            "generate_decoder_formula_macs": profiling.mage_decoder_flops(512, 6, FRAMES, 16)
+            * BATCH}
+    log("profiling: " + json.dumps(line))
+    if not (size > 0 and counted["flops"] > 0):
+        raise AssertionError(f"profiling: {line}")
+    return line
+
+
+def run_parallel_check(torch, np, build_pipeline, kernels, card: str) -> dict:
+    """``MageTrainer`` on a 1-rank NCCL mesh: MAGE at full width (f32, batch
+    4, 16 frames, dropout 0), 3 steps of the plain trainer, of the mesh
+    trainer with replicated parameters (DDP's all-reduce) and with ``fsdp:
+    true``, on the same batches and posterior draws: every loss term of
+    every step within 1e-5 relative of the plain trainer's, 1 vq launch a
+    step. Then batch-parallel cached generation (``shard_batch``,
+    ``gather_batch``) on the mesh trainer's weights gives the plain ids, and
+    ``parallel.dryrun --devices 4`` runs over gloo on the host."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from mage_tpu_torch.config import Config
+    from mage_tpu_torch.parallel import dryrun, gather_batch, make_mesh, shard_batch
+    from mage_tpu_torch.training.mage_trainer import MageTrainer
+
+    batches = [train_batch(torch, 4, 32, seed=20 + i) for i in range(3)]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{dryrun.free_port()}",
+                            rank=0, world_size=1)
+    runs = {}
+    try:
+        mesh = make_mesh({"data": -1}, "cuda")
+        with tempfile.TemporaryDirectory() as tmp, \
+                torch.backends.cudnn.flags(enabled=True, deterministic=True, allow_tf32=False):
+            for label, on_mesh, fsdp in (("plain", False, False), ("ddp", True, False),
+                                         ("fsdp", True, True)):
+                pipe = build_pipeline("config/mage_caterv1.yaml", FRAMES, device="cuda",
+                                      seed=0, dropout=0.0)
+                cfg = Config({"epoch": 1, "batchsize": 4, "lr": TRAIN_LR,
+                              "checkpoint_every": 100, "fsdp": fsdp})
+                trainer = MageTrainer(pipe, cfg, os.path.join(tmp, label),
+                                      mesh=mesh if on_mesh else None)
+                trainer.init_state()
+                gen = torch.Generator(device="cuda").manual_seed(0)
+                steps, times = [], []
+                for b in batches:
+                    start = torch.cuda.Event(enable_timing=True)
+                    end = torch.cuda.Event(enable_timing=True)
+                    start.record()
+                    terms, launches, _ = count_launches(torch, kernels, lambda: trainer.train_step(
+                        shard_batch(b, mesh) if on_mesh else b, TRAIN_LR, trainer.beta,
+                        pipe.alpha, generator=gen))
+                    end.record()
+                    torch.cuda.synchronize()
+                    expect(launches, {"vq_nearest": 1}, f"{label} train step")
+                    steps.append({k: float(v) for k, v in terms.items()})
+                    times.append(start.elapsed_time(end) / 1e3)
+                trainer.sync_module()
+                first = batches[0]["images"][:, :1]
+                with torch.no_grad():
+                    lat0 = pipe.first_stage.encode(shard_batch(first, mesh) if on_mesh else first)
+                    text, speed = batches[0]["text"], batches[0]["speed"]
+                    noise = torch.randn(4, 16, 16, 64, device="cuda",
+                                        generator=torch.Generator("cuda").manual_seed(9))
+                    if on_mesh:
+                        text, speed, noise = (shard_batch(t, mesh) for t in (text, speed, noise))
+                    ids = pipe.core.generate_cached(lat0, text, speed, video_noise=noise)
+                    if on_mesh:
+                        ids = gather_batch(ids, mesh)
+                runs[label] = {"terms": steps, "s_per_step": times, "ids": ids}
+                del trainer, pipe
+                torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    line = {"card": card, "batch": 4, "dtype": "float32",
+            **{f"{k}_s_per_step": v["s_per_step"] for k, v in runs.items()},
+            "final_loss": {k: [t["final_loss"] for t in v["terms"]] for k, v in runs.items()}}
+    for label in ("ddp", "fsdp"):
+        for got, want in zip(runs[label]["terms"], runs["plain"]["terms"]):
+            for k, v in want.items():
+                if not math.isclose(got[k], v, rel_tol=1e-5, abs_tol=1e-12):
+                    raise AssertionError(f"{label} trainer: {k} {got[k]} != plain {v}")
+        if not torch.equal(runs[label]["ids"], runs["plain"]["ids"]):
+            raise AssertionError(f"{label}: batch-parallel ids differ from the plain run's")
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "mage_tpu_torch.parallel.dryrun",
+                          "--devices", "4", "--device", "cpu"], capture_output=True,
+                         text=True, timeout=600, check=True)
+    line["dryrun_4_gloo"] = [x for x in res.stdout.splitlines() if x.startswith(("mesh", "dryrun"))]
+    line["dryrun_s"] = time.perf_counter() - t0
+    log("parallel on one card: " + json.dumps(line))
+    return line
+
+
 def main() -> int:
     import torch
 
@@ -2606,9 +2997,19 @@ def main() -> int:
         log(f"stage-1 f32 GPU-vs-CPU check took {time.perf_counter() - t0:.1f} s")
         run_cli_phase(torch, np, kernels, smi)
         run_kvquant_phase(torch, np, build_pipeline, kernels, smi)
-        e2e_lines, evals_lines = run_e2e_phase(torch, kernels, smi)
-        for row in rows:  # over the five chains of the e2e phase, then the evals
-            for key, phase in (("e2e", e2e_lines), ("evals", evals_lines)):
+        e2e_lines, evals_lines, probe_lines = run_e2e_phase(torch, kernels, smi)
+        t0 = time.perf_counter()
+        bert = run_bert_phase(torch, np, kernels, smi)
+        run_spectral_check(torch, smi)
+        torch.backends.cudnn.allow_tf32 = True  # torch's default, as a user's run gets it
+        run_profiling_check(torch, np, build_pipeline, kernels, smi)
+        torch.backends.cudnn.allow_tf32 = False
+        run_parallel_check(torch, np, build_pipeline, kernels, smi)
+        log(f"the rest of the package took {time.perf_counter() - t0:.1f} s")
+        for row in rows:  # the chains of the e2e phase, the evals, the probes
+            row["bert_launches"] = bert["launches"].get(row["name"], 0)
+            for key, phase in (("e2e", e2e_lines), ("evals", evals_lines),
+                               ("probes", probe_lines)):
                 row[f"{key}_launches"] = sum(line["launches"].get(row["name"], 0)
                                              for line in phase.values())
                 errs = [line["held"][row["name"]]["max_abs_err"] for line in phase.values()
@@ -2642,7 +3043,7 @@ def main() -> int:
     for row in rows:
         for key in ("ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err",
                     "conv_only_ms", "unfused_ms", "train_ms", "train_bound_ms", *stage1_keys,
-                    "e2e_max_abs_err", "evals_max_abs_err"):
+                    "e2e_max_abs_err", "evals_max_abs_err", "probes_max_abs_err"):
             if row[key] is not None and not math.isfinite(row[key]):
                 print(f"chip_smoke: {row['name']} {key} = {row[key]}", file=sys.stderr)
                 return 1
@@ -2650,7 +3051,8 @@ def main() -> int:
             "plain_ms", "bound_ms", "bound_by", "library_ms", "conv_only_ms", "unfused_ms",
             "train_launches", "train_ms", "train_bound_ms", "stage1_launches",
             "stage1_eval_launches", *stage1_keys, "e2e_launches", "e2e_max_abs_err",
-            "evals_launches", "evals_max_abs_err")
+            "evals_launches", "evals_max_abs_err", "probes_launches", "probes_max_abs_err",
+            "bert_launches")
     print(json.dumps({"kernels": [{k: row[k] for k in keys} for row in rows]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}),

@@ -57,17 +57,20 @@ def parse_args(argv=None):
     return args, targs
 
 
-def restore_run(targs, device, ckpt=None):
+def restore_run(targs, device, ckpt=None, build_compact=None):
     """The run's dataset on ``device`` (the same seed and counts, so the val
     split is the run's), its VQ-VAE (``vqvae/best``) and pipeline with the
     stage-2 core of ``mage/<ckpt>`` (by default ``best``, ``final`` when the
-    run saved no best) -> (dev, vqvae, pipeline)."""
+    run saved no best) -> (dev, vqvae, pipeline). ``build_compact`` builds
+    the chain's dataset (``device_data.build_compact_single_mnist``, the
+    default, or ``build_compact_double_modified`` for a
+    ``cli.train_mnist2_e2e`` run)."""
     from mage_tpu_torch.cli import train_mnist_e2e as tm
     from mage_tpu_torch.data import device_data as dd
     from mage_tpu_torch.training.checkpoint import Checkpointer
 
-    compact = dd.build_compact_single_mnist(targs.num_train, targs.num_val, targs.seed,
-                                            targs.mnist_npz)
+    build_compact = build_compact or dd.build_compact_single_mnist
+    compact = build_compact(targs.num_train, targs.num_val, targs.seed, targs.mnist_npz)
     dev = tm.upload(compact, device)
     model = tm.make_vqvae(targs, device)
     model.load_state_dict(Checkpointer(os.path.join(targs.out, "vqvae")).restore(

@@ -6,13 +6,19 @@ saving a config snapshot next to the checkpoints (:64-67); ``--split test``
 reloads the snapshot from the checkpoint directory, restores the stage-2
 weights and samples autoregressively, writing GIFs (:201-257).
 
-One device, ``--device`` (default ``cuda``). The config's targets name
-``mage_tpu.*`` classes and resolve to the port's (``config.target_path``).
+One device, ``--device`` (default ``cuda``), or with ``--multihost`` one
+process per device under ``torchrun``: training is data parallel over
+every rank (``train.batchsize`` is the global batch; each rank loads its
+shard; ``train.fsdp`` shards the parameters over the ranks too), rank 0
+writing the snapshot, logs and checkpoints. The config's targets name
+``mage_tpu.*`` classes and resolve to the port's (``config.resolve_target``).
 
     python -m mage_tpu_torch.cli.main_mage --config config/mage_mnist.yaml \\
         --split train --checkpoint-path results/mage_mnist
     python -m mage_tpu_torch.cli.main_mage --split test \\
         --test_model results/mage_mnist/model_best --max-test-items 4
+    torchrun --nproc_per_node 4 -m mage_tpu_torch.cli.main_mage --multihost \\
+        --config config/mage_mnist.yaml --split train
 """
 
 import argparse
@@ -50,6 +56,9 @@ def parse_args(argv=None):
                         "codes with per-head scales (default: unquantized)")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device; cpu runs the kernels' plain versions")
+    p.add_argument("--multihost", action="store_true",
+                   help="join the process group torchrun describes (nccl on the card, "
+                        "gloo with --device cpu); training is data parallel over it")
     return p.parse_args(argv)
 
 
@@ -67,25 +76,34 @@ def build_pipeline(configs, opt):
                                                          "kv_quant": opt.kv_quant})
 
 
-def train(opt) -> None:
+def train(opt, mesh=None) -> None:
     from mage_tpu_torch.config import load_config, save_config
     from mage_tpu_torch.data.loader import Loader, PrefetchLoader
+    from mage_tpu_torch.parallel.mesh import axis_index, axis_size, is_main_rank
     from mage_tpu_torch.training.mage_trainer import MageTrainer
 
     configs = load_config(opt.config)
     os.makedirs(opt.checkpoint_path, exist_ok=True)
-    save_config(configs, os.path.join(opt.checkpoint_path, "config.yaml"))
+    if is_main_rank(mesh):
+        save_config(configs, os.path.join(opt.checkpoint_path, "config.yaml"))
 
     train_dataset = build(configs, "train", opt.seed)
     test_dataset = build(configs, "test", opt.seed)
     pipeline = build_pipeline(configs, opt)
 
-    trainer = MageTrainer(pipeline, configs.train, opt.checkpoint_path, seed=opt.seed)
-    bs = int(configs.train.batchsize)
-    base_loader = Loader(train_dataset, bs, shuffle=True, seed=opt.seed, drop_last=True)
+    trainer = MageTrainer(pipeline, configs.train, opt.checkpoint_path, mesh=mesh,
+                          seed=opt.seed)
+    bs = int(configs.train.batchsize)  # global batch size
+    n_data, index = axis_size(mesh, "data"), axis_index(mesh, "data")
+    if bs % n_data:
+        raise SystemExit(f"batchsize {bs} not divisible by {n_data} devices")
+    # each rank's share (reference main_mage.py:93)
+    base_loader = Loader(train_dataset, bs // n_data, shuffle=True, seed=opt.seed,
+                         drop_last=True, num_shards=n_data, shard_index=index)
     # overlap host decode/collate with device steps
     train_loader = PrefetchLoader(base_loader)
-    test_loader = Loader(test_dataset, bs, shuffle=False, drop_last=True)
+    test_loader = Loader(test_dataset, bs // n_data, shuffle=False, drop_last=True,
+                         num_shards=n_data, shard_index=index)
 
     # the JAX CLI reads one batch to shape its state; reading it here too
     # keeps the datasets' random streams (speeds, crops) the same as there
@@ -161,12 +179,22 @@ def sampling(opt) -> int:
 def main(argv=None):
     """``--split train`` returns None; ``--split test`` the items sampled."""
     opt = parse_args(argv)
-    from mage_tpu_torch.models.pipeline import resolve_device
+    import torch.distributed as dist
 
-    resolve_device(opt.device)
-    if opt.split == "train":
-        return train(opt)
-    return sampling(opt)
+    from mage_tpu_torch.models.pipeline import resolve_device
+    from mage_tpu_torch.parallel import init_distributed, make_mesh
+
+    if not opt.multihost:
+        resolve_device(opt.device)
+        return train(opt) if opt.split == "train" else sampling(opt)
+    device = init_distributed(opt.device)
+    opt.device = str(device)
+    try:
+        if opt.split == "train":
+            return train(opt, make_mesh({"data": -1}, device.type))
+        return sampling(opt)
+    finally:
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -8,11 +8,13 @@ checkpoints (one ``torch.save`` file each, which a stage-2 config names as
 its first stage's ``ckpt_path``), reconstruction grids.
 
 One device, ``--device`` (default ``cuda``; ``cpu`` runs the kernels' plain
-versions). The JAX CLI's ``--multihost`` has no counterpart yet (ROADMAP
-A12).
+versions), or with ``--multihost`` one process per device under
+``torchrun``: data parallel over every rank (``--batch-size`` is the global
+batch; each rank loads its shard), rank 0 writing logs and checkpoints.
 
     python -m mage_tpu_torch.cli.train_vqvae --dataset mnist \\
         --data-root data/moving_mnist/mnist_single_20f_10k_ --output-folder mnist_512_256
+    torchrun --nproc_per_node 4 -m mage_tpu_torch.cli.train_vqvae --multihost ...
 """
 
 import argparse
@@ -45,6 +47,9 @@ def parse_args(argv=None):
                              "codebook collapse)")
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device; cpu runs the kernels' plain versions")
+    parser.add_argument("--multihost", action="store_true",
+                        help="join the process group torchrun describes: data parallel "
+                             "over every rank (nccl on the card, gloo with --device cpu)")
     return parser.parse_args(argv)
 
 
@@ -79,12 +84,32 @@ def build_datasets(args):
 
 def main(argv=None) -> None:
     args = parse_args(argv)
-    from mage_tpu_torch.data.loader import Loader, PrefetchLoader
+    import torch.distributed as dist
+
     from mage_tpu_torch.models.pipeline import resolve_device
+    from mage_tpu_torch.parallel import init_distributed, make_mesh
+
+    mesh, n_proc, proc = None, 1, 0
+    if args.multihost:
+        device = init_distributed(args.device)
+        mesh = make_mesh({"data": -1}, device.type)
+        n_proc, proc = dist.get_world_size(), dist.get_rank()
+    else:
+        device = resolve_device(args.device)
+    try:
+        _train(args, device, mesh, n_proc, proc)
+    finally:
+        if args.multihost:
+            dist.destroy_process_group()
+
+
+def _train(args, device, mesh, n_proc: int, proc: int) -> None:
+    from mage_tpu_torch.data.loader import Loader, PrefetchLoader
     from mage_tpu_torch.models.vqvae import VectorQuantizedVAE
     from mage_tpu_torch.training.vqvae_trainer import VQVAETrainer
 
-    device = resolve_device(args.device)
+    if args.batch_size % n_proc:
+        raise SystemExit(f"--batch-size {args.batch_size} not divisible by {n_proc} devices")
     train_ds, test_ds, num_channels, down_ratio = build_datasets(args)
     model = VectorQuantizedVAE(
         input_dim=num_channels, down_ratio=down_ratio, dim=args.hidden_size, K=args.k
@@ -98,12 +123,16 @@ def main(argv=None) -> None:
         seed=args.seed,
         codebook_restart=args.codebook_restart,
         device=device,
+        mesh=mesh,
     )
     train_loader = PrefetchLoader(Loader(
-        train_ds, args.batch_size, shuffle=True, seed=args.seed, drop_last=True,
+        train_ds, args.batch_size // n_proc, shuffle=True, seed=args.seed, drop_last=True,
+        num_shards=n_proc, shard_index=proc,
     ))  # overlap host decode/collate with device steps
-    eval_bs = min(16, len(test_ds))
-    test_loader = Loader(test_ds, eval_bs, shuffle=False, drop_last=True)
+    eval_bs = min(16 if 16 % n_proc == 0 else n_proc, len(test_ds))
+    eval_bs = max((eval_bs // n_proc) * n_proc, n_proc)
+    test_loader = Loader(test_ds, eval_bs // n_proc, shuffle=False, drop_last=True,
+                         num_shards=n_proc, shard_index=proc)
 
     fixed = np.stack([test_ds[i] for i in range(min(16, len(test_ds)))])
 

@@ -201,6 +201,32 @@ def export_text_encoder(te: Mapping[str, Any], text_layers: int,
     return sd
 
 
+def export_bert_text_head(te: Mapping[str, Any], prefix: str = "text_encoder") -> dict:
+    """A JAX ``BertTextualHead``'s params (``FlaxBertModule`` under ``bert``
+    and ``text_projection_key``) -> HF torch ``BertModel`` keys under
+    ``{prefix}.bert.``, plus ``{prefix}.text_projection_key``."""
+    sd: dict = {}
+    p = f"{prefix}." if prefix else ""
+    bert = te["bert"]
+    emb = bert["embeddings"]
+    for name in ("word_embeddings", "position_embeddings", "token_type_embeddings"):
+        sd[f"{p}bert.embeddings.{name}.weight"] = _np(emb[name]["embedding"])
+    _put_ln(sd, f"{p}bert.embeddings.LayerNorm", emb["LayerNorm"])
+    for i, layer in bert["encoder"]["layer"].items():
+        lp = f"{p}bert.encoder.layer.{i}"
+        att = layer["attention"]
+        for name in ("query", "key", "value"):
+            _put_conv(sd, f"{lp}.attention.self.{name}", att["self"][name], "linear")
+        _put_conv(sd, f"{lp}.attention.output.dense", att["output"]["dense"], "linear")
+        _put_ln(sd, f"{lp}.attention.output.LayerNorm", att["output"]["LayerNorm"])
+        _put_conv(sd, f"{lp}.intermediate.dense", layer["intermediate"]["dense"], "linear")
+        _put_conv(sd, f"{lp}.output.dense", layer["output"]["dense"], "linear")
+        _put_ln(sd, f"{lp}.output.LayerNorm", layer["output"]["LayerNorm"])
+    _put_conv(sd, f"{p}bert.pooler.dense", bert["pooler"]["dense"], "linear")
+    sd[f"{p}text_projection_key"] = _np(te["text_projection_key"])
+    return sd
+
+
 def export_ma_encoder(ma: Mapping[str, Any], ma_layers: int,
                       prefix: str = "ma_encoder", pre_ln: bool = False) -> dict:
     sd: dict = {}
@@ -220,13 +246,30 @@ def export_adain(adain: Mapping[str, Any], prefix: str = "adain") -> dict:
     return sd
 
 
-def _put_basic_block3d(sd, prefix, params):
+def _put_basic_block3d(sd, prefix, params, stats=None):
     sd[f"{prefix}.conv1.weight"] = conv3d_weight(params["conv1"]["kernel"])
     _put_ln(sd, f"{prefix}.bn1", params["bn1"])
     sd[f"{prefix}.conv2.weight"] = conv3d_weight(params["conv2"]["kernel"])
     _put_ln(sd, f"{prefix}.bn2", params["bn2"])
-    sd[f"{prefix}.downsample.0.weight"] = conv3d_weight(params["downsample_conv"]["kernel"])
-    _put_ln(sd, f"{prefix}.downsample.1", params["downsample_norm"])
+    if "downsample_conv" in params:
+        sd[f"{prefix}.downsample.0.weight"] = conv3d_weight(
+            params["downsample_conv"]["kernel"])
+        _put_ln(sd, f"{prefix}.downsample.1", params["downsample_norm"])
+    # a spectral block's power-iteration state: flax keeps it in batch_stats
+    # under SpectralNorm_{i} as ``conv{i+1}/kernel/u`` and ``.../sigma``
+    for i, conv in enumerate(("conv1", "conv2")):
+        sn = (stats or {}).get(f"SpectralNorm_{i}")
+        if sn is not None:
+            sd[f"{prefix}.{conv}.u"] = _np(sn[f"{conv}/kernel/u"])
+            sd[f"{prefix}.{conv}.sigma"] = _np(sn[f"{conv}/kernel/sigma"])
+
+
+def export_basic_block3d(variables: Mapping[str, Any], prefix: str = "") -> dict:
+    """``{params[, batch_stats]}`` of a JAX ``BasicBlock3D`` -> the port's
+    state dict; a spectral block's ``u`` and ``sigma`` come with it."""
+    sd: dict = {}
+    _put_basic_block3d(sd, prefix, variables["params"], variables.get("batch_stats"))
+    return {k.lstrip("."): v for k, v in sd.items()}
 
 
 def export_mage_core(params: Mapping[str, Any], *, randomness: bool, text_layers: int,
@@ -237,7 +280,11 @@ def export_mage_core(params: Mapping[str, Any], *, randomness: bool, text_layers
     (from :func:`export_vqvae` or :func:`export_autoencoder_kl`) is merged
     under ``first_stage_model.``."""
     sd: dict = {}
-    sd.update(export_text_encoder(params["text_encoder"], text_layers))
+    te = params["text_encoder"]
+    if "bert" in te:
+        sd.update(export_bert_text_head(te))
+    else:
+        sd.update(export_text_encoder(te, text_layers))
     sd.update(export_ma_encoder(params["ma_encoder"], ma_layers, pre_ln=pre_ln))
     gm = params["generate_model"]
     _put_conv(sd, "generate_model.in_linear", gm["in_linear"], "linear")

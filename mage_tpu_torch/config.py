@@ -4,7 +4,7 @@ The port's own copy of ``mage_tpu/config.py``: the same ``Config`` dict, the
 same ordered deep merge and the same YAML files. Targets naming a
 ``mage_tpu.`` module, or one of the reference repo's class paths, resolve to
 the matching class in ``mage_tpu_torch``, so the shipped configs build the
-port unchanged.
+port unchanged; any other dotted path names a user's own class.
 """
 
 from __future__ import annotations
@@ -110,6 +110,16 @@ def get_obj_from_str(string: str):
     """Resolve ``"module.sub.Class"`` (alias-mapped to the port) to the object."""
     module, cls = target_path(string).rsplit(".", 1)
     return getattr(importlib.import_module(module), cls)
+
+
+def resolve_target(config: Optional[Mapping], default=None):
+    """The class named by ``config['target']``, or ``default`` when the
+    config names none. Reference class paths and ``mage_tpu.*`` paths give
+    the port's classes (:func:`target_path`); any other dotted path is
+    imported as it stands, so a user's own ``nn.Module`` can be named."""
+    if isinstance(config, Mapping) and config.get("target"):
+        return get_obj_from_str(str(config["target"]))
+    return default
 
 
 def instantiate_from_config(config: Mapping, merge: Optional[Mapping] = None):

@@ -6,7 +6,7 @@ changes to ``frechet_distance`` that leave its value alone wherever the JAX
 package's is finite: ``sqrtm`` is called without its deprecated ``disp``,
 and a non-finite root (a singular covariance product, which some scipy
 versions return as nan) is taken again with 1e-6 I added to both
-covariances. ``return_regularized=True`` also returns whether that second
+covariances, and the trace is taken of those too. ``return_regularized=True`` also returns whether that second
 root was taken, so that a caller can mark a distance the JAX package would
 not have given. The port keeps its own copy so that it imports nothing of the
 JAX package.
@@ -62,10 +62,14 @@ def frechet_distance(mu1, sigma1, mu2, sigma2, *, return_regularized: bool = Fal
     regularized = not np.isfinite(covmean).all()
     if regularized:
         # a singular product (fewer clips than feature dims), where some
-        # scipy versions return nan: the root of the product regularised by
-        # 1e-6 I, as pytorch-fid computes it
+        # scipy versions return nan: both covariances are regularised by
+        # 1e-6 I, and the trace below is taken of the same regularised
+        # covariances, so the value is the exact Frechet distance of the
+        # regularised Gaussians (pytorch-fid regularises the root alone,
+        # which biases a small distance by -2e-6 per null direction)
         offset = np.eye(sigma1.shape[0]) * 1e-6
-        covmean = linalg.sqrtm((sigma1 + offset) @ (sigma2 + offset))
+        sigma1, sigma2 = sigma1 + offset, sigma2 + offset
+        covmean = linalg.sqrtm(sigma1 @ sigma2)
     if np.iscomplexobj(covmean):
         covmean = covmean.real
     dist = float(diff @ diff + np.trace(sigma1 + sigma2 - 2.0 * covmean))

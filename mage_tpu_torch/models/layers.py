@@ -37,6 +37,7 @@ from mage_tpu_torch.ops.cached_attention import (
     cached_slot_attention_quant,
     quantize_kv_slot,
 )
+from mage_tpu_torch.parallel import tensor_parallel as tp
 
 NEG_INF = -1e9  # additive mask value, as in the JAX package
 SPATIAL_ATTN = ("flat", "fusedblock")  # routes of an unmasked (H or W) block
@@ -66,7 +67,9 @@ class MultiHeadAttention(nn.Module):
     """Multi-head attention with an additive bias and a key-padding mask
     (True = masked), keyed like ``torch.nn.MultiheadAttention``. Inputs are
     (..., L, D); heads split as (..., L, heads, hd). ``attn_dropout`` drops
-    attention weights in train mode."""
+    attention weights in train mode. Under a tensor-parallel split
+    (``parallel.tensor_parallel``) the weights hold this rank's heads, and
+    the layer runs on those heads only."""
 
     def __init__(self, d_model: int, n_head: int, attn_dropout: float = 0.0):
         super().__init__()
@@ -78,9 +81,11 @@ class MultiHeadAttention(nn.Module):
         self.weight_dropout = nn.Dropout(attn_dropout)
 
     def _proj(self, x: torch.Tensor, i: int) -> torch.Tensor:
-        d = self.d_model
-        return F.linear(x, self.in_proj_weight[i * d:(i + 1) * d],
-                        self.in_proj_bias[i * d:(i + 1) * d])
+        d = self.in_proj_weight.shape[0] // 3  # d_model / tp under a split
+        bias = self.in_proj_bias[i * self.d_model:(i + 1) * self.d_model]
+        if d != self.d_model:
+            return tp.column_linear(x, self.in_proj_weight[i * d:(i + 1) * d], bias)
+        return F.linear(x, self.in_proj_weight[i * d:(i + 1) * d], bias)
 
     def project_q(self, x):
         return self._proj(x, 0)
@@ -91,8 +96,8 @@ class MultiHeadAttention(nn.Module):
     def attend(self, q, k, v, bias: Optional[torch.Tensor] = None,
                key_padding_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Projected (..., Lq, D) q and (..., Lk, D) k, v -> (..., Lq, D)."""
-        h = self.n_head
-        hd = self.d_model // h
+        hd = self.d_model // self.n_head
+        h = q.shape[-1] // hd  # this rank's heads under a split
         qh = q.unflatten(-1, (h, hd))
         kh = k.unflatten(-1, (h, hd))
         vh = v.unflatten(-1, (h, hd))
@@ -103,8 +108,10 @@ class MultiHeadAttention(nn.Module):
             scores = scores + torch.where(
                 key_padding_mask[:, None, None, :], NEG_INF, 0.0).to(scores.dtype)
         w = self.weight_dropout(torch.softmax(scores, dim=-1))
-        out = torch.einsum("...hqk,...khd->...qhd", w, vh)
-        return self.out_proj(out.flatten(-2))
+        out = torch.einsum("...hqk,...khd->...qhd", w, vh).flatten(-2)
+        if out.shape[-1] != self.d_model:
+            return tp.row_linear(out, self.out_proj.weight, self.out_proj.bias)
+        return self.out_proj(out)
 
     def forward(self, q, k, v, bias=None, key_padding_mask=None):
         return self.attend(self.project_q(q), self._proj(k, 1), self._proj(v, 2),
@@ -120,6 +127,9 @@ class MLP(nn.Module):
         self.c_proj = nn.Linear(4 * d_model, d_model)
 
     def forward(self, x):
+        if self.c_fc.weight.shape[0] != self.c_fc.out_features:  # a tensor-parallel split
+            h = quick_gelu(tp.column_linear(x, self.c_fc.weight, self.c_fc.bias))
+            return tp.row_linear(h, self.c_proj.weight, self.c_proj.bias)
         return self.c_proj(quick_gelu(self.c_fc(x)))
 
 
@@ -295,7 +305,11 @@ class _TorchStyleEncoderLayer(nn.Module):
     def forward(self, x, key_padding_mask=None):
         h = self.self_attn(x, x, x, key_padding_mask=key_padding_mask)
         x = self.norm1(x + self.drop(h))
-        h = self.linear2(self.drop(F.gelu(self.linear1(x))))
+        if self.linear1.weight.shape[0] != self.linear1.out_features:  # a tensor-parallel split
+            h = self.drop(F.gelu(tp.column_linear(x, self.linear1.weight, self.linear1.bias)))
+            h = tp.row_linear(h, self.linear2.weight, self.linear2.bias)
+        else:
+            h = self.linear2(self.drop(F.gelu(self.linear1(x))))
         return self.norm2(x + self.drop(h))
 
 
@@ -338,25 +352,61 @@ class TransformerTextEncoder(nn.Module):
         return self.text_projection(self.ln_text_final(x))
 
 
+def _l2_normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    return x * torch.rsqrt((x * x).sum() + eps)
+
+
+class SpectralConv3d(nn.Conv3d):
+    """A Conv3d whose kernel is divided by its top singular value, estimated
+    as flax's ``nn.SpectralNorm`` (n_steps 1, eps 1e-12) does: the kernel,
+    in flax's (kD, kH, kW, in, out) order, is viewed as a (-1, out) matrix
+    W; every call runs one power-iteration step from the stored ``u``
+    (1, out): v = l2n(u W^T), u' = l2n(v W), sigma = v W u'^T (u and v
+    carry no gradient, sigma does, through W), and uses W / sigma. In train
+    mode the call then stores u' and sigma in the buffers ``u`` and
+    ``sigma`` (flax's ``batch_stats``); in eval mode it iterates all the
+    same but stores nothing. (``torch.nn.utils.parametrizations
+    .spectral_norm`` runs no iteration in eval mode, so it would disagree.)
+    ``u`` starts standard normal and ``sigma`` at 1, as in flax."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.register_buffer("u", torch.randn(1, self.out_channels))
+        self.register_buffer("sigma", torch.ones(()))
+
+    def normalized_weight(self) -> torch.Tensor:
+        w = self.weight
+        mat = w.permute(2, 3, 4, 1, 0).reshape(-1, w.shape[0])
+        with torch.no_grad():
+            v = _l2_normalize(self.u.to(mat.dtype) @ mat.T)
+            u = _l2_normalize(v @ mat)
+        sigma = (v @ mat @ u.T)[0, 0]
+        if self.training:
+            with torch.no_grad():
+                self.u.copy_(u)
+                self.sigma.copy_(sigma)
+        return w / torch.where(sigma != 0, sigma, torch.ones_like(sigma))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._conv_forward(x, self.normalized_weight(), self.bias)
+
+
 class BasicBlock3D(nn.Module):
     """3D-conv residual block of the posterior pyramid on NCDHW input:
     conv1 (strides ``(stride_t, stride, stride)``) -> GroupNorm(16) -> ReLU
     -> conv2 -> GroupNorm(16), plus a strided conv + GroupNorm on the
     residual when ``downsample``, then ReLU. Every conv is 3x3x3, padding 1,
-    no bias. JAX's ``spectral`` option (spectral-norm convs) is set by no
-    shipped config and not ported."""
+    no bias. ``spectral`` makes conv1 and conv2 :class:`SpectralConv3d`
+    (flax's ``nn.SpectralNorm``; set by no shipped config)."""
 
     def __init__(self, in_planes: int, out_planes: int, stride: int = 1,
                  stride_t: int = 1, downsample: bool = False, spectral: bool = False):
         super().__init__()
-        if spectral:
-            raise NotImplementedError(
-                "spectral-norm BasicBlock3D is not ported (no shipped config sets it)")
         strides = (stride_t, stride, stride)
-        self.conv1 = nn.Conv3d(in_planes, out_planes, 3, stride=strides, padding=1,
-                               bias=False)
+        conv = SpectralConv3d if spectral else nn.Conv3d
+        self.conv1 = conv(in_planes, out_planes, 3, stride=strides, padding=1, bias=False)
         self.bn1 = nn.GroupNorm(16, out_planes, eps=1e-5)
-        self.conv2 = nn.Conv3d(out_planes, out_planes, 3, padding=1, bias=False)
+        self.conv2 = conv(out_planes, out_planes, 3, padding=1, bias=False)
         self.bn2 = nn.GroupNorm(16, out_planes, eps=1e-5)
         self.downsample = nn.Sequential(
             nn.Conv3d(in_planes, out_planes, 3, stride=strides, padding=1, bias=False),

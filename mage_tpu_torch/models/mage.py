@@ -284,7 +284,11 @@ class MAGECore(nn.Module):
                  text_padding_idx: int = 0, text_dropout: float = 0.0,
                  ma_layers: int = 1, ma_d_model: int = 512,
                  dec_layers: int = 6, dec_out_channels: int = 512,
-                 spatial_attn: str = "flat", kv_quant: Optional[str] = None):
+                 spatial_attn: str = "flat", kv_quant: Optional[str] = None,
+                 text_encoder_cls: Optional[type] = None,
+                 text_encoder_params: Optional[dict] = None,
+                 ma_cls: Optional[type] = None, ma_params: Optional[dict] = None,
+                 decoder_cls: Optional[type] = None, decoder_params: Optional[dict] = None):
         super().__init__()
         w, r = vision_width, image_resolution
         self.codebook_size = codebook_size
@@ -306,18 +310,32 @@ class MAGECore(nn.Module):
         self.speed_embedding = nn.Parameter(torch.empty(1, w))
         self.H_positional_embedding = nn.Parameter(torch.empty(1, r, 1, w))
         self.W_positional_embedding = nn.Parameter(torch.empty(1, 1, r, w))
-        self.text_encoder = TransformerTextEncoder(
-            vocab_size=text_vocab_size, transformer_width=text_width,
-            transformer_layers=text_layers, output_dim=text_output_dim,
-            context_length=text_context_length, padding_idx=text_padding_idx,
-            dropout=text_dropout)
-        self.ma_encoder = MAEncoder(layers=ma_layers, d_model=ma_d_model, dropout=dropout,
-                                    pre_ln=pre_ln)
-        self.generate_model = FlatAxialDecoder(
-            in_channels=w, model_channels=ma_d_model, out_channels=dec_out_channels,
-            frames_length=frames_length, layers=dec_layers, context_channels=ma_d_model,
-            use_cids=use_cids, spatial_attn=spatial_attn, dropout=dropout, remat=remat,
-            kv_quant=kv_quant)
+        if text_encoder_cls is not None:
+            self.text_encoder = text_encoder_cls(**dict(text_encoder_params or {}))
+        else:
+            self.text_encoder = TransformerTextEncoder(
+                vocab_size=text_vocab_size, transformer_width=text_width,
+                transformer_layers=text_layers, output_dim=text_output_dim,
+                context_length=text_context_length, padding_idx=text_padding_idx,
+                dropout=text_dropout)
+        if ma_cls is not None:
+            # the reference merges {'dropout'} into the MA config (mage_model.py:475)
+            self.ma_encoder = ma_cls(**{"dropout": dropout, **dict(ma_params or {})})
+        else:
+            self.ma_encoder = MAEncoder(layers=ma_layers, d_model=ma_d_model, dropout=dropout,
+                                        pre_ln=pre_ln)
+        if decoder_cls is not None:
+            # and {'use_cids', 'dropout', 'context_channels'} into the
+            # decoder's (mage_model.py:476-477)
+            self.generate_model = decoder_cls(**{
+                "use_cids": use_cids, "dropout": dropout, "context_channels": ma_d_model,
+                **dict(decoder_params or {})})
+        else:
+            self.generate_model = FlatAxialDecoder(
+                in_channels=w, model_channels=ma_d_model, out_channels=dec_out_channels,
+                frames_length=frames_length, layers=dec_layers, context_channels=ma_d_model,
+                use_cids=use_cids, spatial_attn=spatial_attn, dropout=dropout, remat=remat,
+                kv_quant=kv_quant)
         if randomness:
             self.conv3d = nn.ModuleList(
                 BasicBlock3D(w, out, stride=1, stride_t=2, downsample=True)
@@ -337,22 +355,27 @@ class MAGECore(nn.Module):
         normals for the decoder's input, context and discrete head layers
         (flax's default ``nn.Dense``) and for the 2D convs (flax's default
         ``nn.Conv``), and He normals over fan-out for the posterior's 3D
-        convs."""
+        convs. A sub-component of a config-chosen class with an
+        ``init_weights(generator)`` method (the BERT head) draws its own."""
 
         def normal_(p, std):
             p.copy_(torch.randn(p.shape, generator=generator) * std)
 
         dec = self.generate_model
-        mc = dec.model_channels
-        attn_std, fc_std = mc ** -0.5, (2 * mc) ** -0.5
-        proj_std = mc ** -0.5 * (2 * len(dec.blocks)) ** -0.5
-        for block in dec.blocks:
-            normal_(block.attn.in_proj_weight, attn_std)
-            normal_(block.attn.out_proj.weight, proj_std)
-            normal_(block.mlp.c_fc.weight, fc_std)
-            normal_(block.mlp.c_proj.weight, proj_std)
-        for lin in [dec.in_linear, dec.context_linear] + ([dec.out] if dec.use_cids else []):
-            lecun_normal_(lin.weight, generator)
+        if isinstance(dec, FlatAxialDecoder):
+            mc = dec.model_channels
+            attn_std, fc_std = mc ** -0.5, (2 * mc) ** -0.5
+            proj_std = mc ** -0.5 * (2 * len(dec.blocks)) ** -0.5
+            for block in dec.blocks:
+                normal_(block.attn.in_proj_weight, attn_std)
+                normal_(block.attn.out_proj.weight, proj_std)
+                normal_(block.mlp.c_fc.weight, fc_std)
+                normal_(block.mlp.c_proj.weight, proj_std)
+            for lin in [dec.in_linear, dec.context_linear] + ([dec.out] if dec.use_cids else []):
+                lecun_normal_(lin.weight, generator)
+        for part in (self.text_encoder, self.ma_encoder, dec):
+            if hasattr(part, "init_weights"):
+                part.init_weights(generator)
         for name, m in self.named_modules():
             if isinstance(m, nn.Conv3d) and name.startswith("conv3d."):
                 normal_(m.weight, (2.0 / (m.weight.shape[0] * m.weight[0, 0].numel())) ** 0.5)

@@ -26,7 +26,7 @@ import torch
 from torch import nn
 from torch.func import functional_call
 
-from mage_tpu_torch.config import instantiate_from_config, load_config, target_path
+from mage_tpu_torch.config import instantiate_from_config, load_config, resolve_target
 from mage_tpu_torch.models.autoencoder_kl import AutoencoderKL, DiagonalGaussian
 from mage_tpu_torch.models.layers import MAEncoder, TransformerTextEncoder
 from mage_tpu_torch.models.mage import FlatAxialDecoder, MAGECore
@@ -182,13 +182,6 @@ class FirstStageKL:
         return frames.reshape(b, t, *frames.shape[1:])
 
 
-def _check_target(config: Mapping, default: type, what: str) -> None:
-    target = config.get("target") if isinstance(config, Mapping) else None
-    if target and target_path(str(target)) != f"{default.__module__}.{default.__name__}":
-        raise NotImplementedError(
-            f"{what} target {target!r}: the port builds {default.__name__} only")
-
-
 class MagePipeline:
     """First stage + ``MAGECore`` + loss and generation glue, from the YAML
     schema of ``config/mage_*.yaml`` and ``config/mage+_*.yaml``
@@ -234,22 +227,33 @@ class MagePipeline:
         self.beta = beta
         self.v_kl = v_kl
         self.auto_beta = auto_beta
-        fs_target = target_path(str(first_stage_config.get("target", "")))
+        # every sub-component class comes from its config ``target``
+        # (reference instantiate_from_config at mage_model.py:474-477)
+        fs_cls = resolve_target(first_stage_config, VectorQuantizedVAE)
         fs_params = first_stage_config.get("params", {})
-        if fs_target == f"{AutoencoderKL.__module__}.{AutoencoderKL.__name__}":
+        if fs_cls is AutoencoderKL:
             self.first_stage = FirstStageKL.from_config(fs_params)
-        else:
-            _check_target(first_stage_config, VectorQuantizedVAE, "first stage")
+        elif fs_cls is VectorQuantizedVAE:
             self.first_stage = FirstStageVQVAE.from_config(fs_params)
-        _check_target(text_encoder_config, TransformerTextEncoder, "text encoder")
-        _check_target(ma_config, MAEncoder, "motion-anchor encoder")
-        _check_target(generate_decoder_config, FlatAxialDecoder, "decoder")
+        else:  # a custom first stage opts in through a classmethod hook
+            self.first_stage = fs_cls.as_first_stage(fs_params)
+        te_cls = resolve_target(text_encoder_config, TransformerTextEncoder)
+        ma_cls = resolve_target(ma_config, MAEncoder)
+        dec_cls = resolve_target(generate_decoder_config, FlatAxialDecoder)
         self.use_cids = use_cids
         self.frames_length = frames_length
         te = dict(text_encoder_config.get("params", {}))
         ma = dict(ma_config.get("params", {}))
         dec = dict(generate_decoder_config.get("params", {}))
+        overrides = {}
+        if te_cls is not TransformerTextEncoder:
+            overrides.update(text_encoder_cls=te_cls, text_encoder_params=te)
+        if ma_cls is not MAEncoder:
+            overrides.update(ma_cls=ma_cls, ma_params=ma)
+        if dec_cls is not FlatAxialDecoder:
+            overrides.update(decoder_cls=dec_cls, decoder_params=dec)
         self.core = MAGECore(
+            **overrides,
             codebook_size=codebook_size,
             frames_length=frames_length,
             image_resolution=image_resolution,
@@ -482,7 +486,8 @@ def build_pipeline(config_path: str | os.PathLike = "config/mage_caterv1.yaml",
         p.generate_decoder_config.params.frames_length = frames_length
     if dropout is not None:
         p.dropout = dropout
-        p.text_encoder_config.params.dropout = dropout
+        if "dropout" in p.text_encoder_config.get("params", {}):
+            p.text_encoder_config.params.dropout = dropout
     return instantiate_from_config(cfg.model, merge={"device": device, "seed": seed,
                                                         "spatial_attn": spatial_attn,
                                                         "kv_quant": kv_quant})

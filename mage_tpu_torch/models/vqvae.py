@@ -60,23 +60,50 @@ class BatchNorm2d(nn.BatchNorm2d):
     ``update_stats``, moves the running averages 0.1 of the way to them,
     the variance being the biased one (torch's own update takes the unbiased
     one, which would be n/(n-1) off flax's). Eval mode normalises by the
-    running averages."""
+    running averages.
+
+    With a ``process_group`` (data parallelism) train mode takes its
+    statistics over the batches of every rank of the group, as JAX's one
+    program over a batch sharded on a mesh does (SyncBatchNorm's semantics;
+    the sums are reduced with autograd-aware all-reduces, so the gradient
+    is the global batch's)."""
 
     def __init__(self, channels: int):
         super().__init__(channels, eps=1e-5, momentum=0.1)
         self.update_stats = True
+        self.process_group = None
+
+    def _update(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        if self.update_stats:
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.mul_(1.0 - m).add_(mean.detach(), alpha=m)
+                self.running_var.mul_(1.0 - m).add_(var.detach(), alpha=m)
+                self.num_batches_tracked.add_(1)
+
+    def _group_forward(self, x: torch.Tensor) -> torch.Tensor:
+        import torch.distributed as dist
+        from torch.distributed._functional_collectives import all_reduce
+
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        count = xf.numel() // xf.shape[1] * dist.get_world_size(self.process_group)
+        mean = all_reduce(xf.sum(dim=(0, 2, 3)), "sum", self.process_group) / count
+        centred = xf - mean[None, :, None, None]
+        var = all_reduce(centred.square().sum(dim=(0, 2, 3)), "sum", self.process_group) / count
+        self._update(mean, var)
+        y = centred * torch.rsqrt(var + self.eps)[None, :, None, None]
+        return (y * self.weight[None, :, None, None] + self.bias[None, :, None, None]).to(x.dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        if self.process_group is not None:
+            return self._group_forward(x)
         if self.update_stats:
             with torch.no_grad():
                 var, mean = torch.var_mean(x.to(torch.promote_types(x.dtype, torch.float32)),
                                            dim=(0, 2, 3), unbiased=False)
-                m = self.momentum
-                self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
-                self.running_var.mul_(1.0 - m).add_(var, alpha=m)
-                self.num_batches_tracked.add_(1)
+            self._update(mean, var)
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
 
 

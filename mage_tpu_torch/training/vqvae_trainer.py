@@ -20,8 +20,14 @@ Port of ``mage_tpu/training/vqvae_trainer.py``:
   which ``FirstStageVQVAE.from_config`` loads as ``ckpt_path``), and image
   grids of fixed images and their reconstructions.
 
-Batches are NHWC frames, numpy arrays or tensors. One device only: the JAX
-trainer's data-parallel mesh waits for ROADMAP A12.
+Batches are NHWC frames, numpy arrays or tensors. With a ``mesh``
+(``parallel.make_mesh``, one process per device, each fed its slice of the
+global batch) the trainer is data parallel as the JAX trainer's mesh is:
+the parameters are replicated and their gradients averaged over the
+``data`` axis (torch's ``DistributedDataParallel``), train-mode BatchNorm
+takes its statistics over the global batch, the restart picks from every
+rank's tokens, the reported losses are the global batch's, and only rank 0
+writes logs and checkpoints.
 """
 
 from __future__ import annotations
@@ -33,10 +39,12 @@ import torch
 import torch.nn.functional as F
 
 from mage_tpu_torch.models.pipeline import init_weights, resolve_device
-from mage_tpu_torch.models.vqvae import VectorQuantizedVAE, batch_statistics_only
+from mage_tpu_torch.models.vqvae import BatchNorm2d, VectorQuantizedVAE, batch_statistics_only
 from mage_tpu_torch.ops.vq import nearest_codebook_indices
+from mage_tpu_torch.parallel import mesh as pmesh
 from mage_tpu_torch.training.checkpoint import Checkpointer
 from mage_tpu_torch.utils import MetricsWriter, Timer
+from mage_tpu_torch.utils.metrics import NullWriter
 
 
 def make_optimizer(model: torch.nn.Module, lr: float = 1e-4) -> torch.optim.Adam:
@@ -57,19 +65,31 @@ def loss_terms(model: VectorQuantizedVAE, images: torch.Tensor, beta: float):
 
 
 def make_train_step(model: VectorQuantizedVAE, optimizer: torch.optim.Optimizer,
-                    beta: float = 2.0):
+                    beta: float = 2.0, mesh=None):
     """-> ``train_step(images, lr)``: one Adam update in train mode, the
-    running averages moved; returns the detached loss terms."""
+    running averages moved; returns the detached loss terms. With a
+    ``mesh`` the gradients (through torch's ``DistributedDataParallel``)
+    and the terms are averaged over its ``data`` axis."""
+    forward = model
+    if pmesh.axis_size(mesh, "data") > 1:
+        from torch.nn.parallel import DistributedDataParallel
+
+        device = next(model.parameters()).device
+        # the running averages come from the global batch on every rank
+        # already: nothing to broadcast
+        forward = DistributedDataParallel(
+            model, device_ids=[device] if device.type == "cuda" else None,
+            process_group=mesh.get_group("data"), broadcast_buffers=False)
 
     def train_step(images: torch.Tensor, lr: float) -> dict:
         for group in optimizer.param_groups:
             group["lr"] = lr
         model.train()
         optimizer.zero_grad(set_to_none=True)
-        loss, aux = loss_terms(model, images, beta)
+        loss, aux = loss_terms(forward, images, beta)
         loss.backward()
         optimizer.step()
-        return {k: v.detach() for k, v in aux.items()}
+        return {k: pmesh.data_mean(v.detach(), mesh) for k, v in aux.items()}
 
     return train_step
 
@@ -103,14 +123,15 @@ def make_reconstruct(model: VectorQuantizedVAE):
     return reconstruct
 
 
-def make_restart_dead_codes(model: VectorQuantizedVAE):
+def make_restart_dead_codes(model: VectorQuantizedVAE, mesh=None):
     """-> ``restart(images, pick=None, noise=None, generator=None)``, which
     re-seeds every code that no token of ``images`` selects and returns their
     number. The ids come from one train-mode forward's ``z_e`` (not from an
     eval-mode encode, whose uncalibrated running averages can select other
     codes). Code ``k`` becomes token ``pick[k]``'s encoder output plus 0.01 x
     ``noise[k]``; ``pick`` (K,) token indices and ``noise`` (K, D) standard
-    normal are drawn from ``generator`` when not given."""
+    normal are drawn from ``generator`` when not given. With a ``mesh`` the
+    tokens are every ``data`` rank's, in rank order (the global batch's)."""
 
     @torch.no_grad()
     def restart(images: torch.Tensor, pick: Optional[torch.Tensor] = None,
@@ -119,7 +140,7 @@ def make_restart_dead_codes(model: VectorQuantizedVAE):
         _, z_e, _ = _forward_batch_statistics(model, images)
         codebook = model.codebook.embedding.weight
         k, d = codebook.shape
-        feats = z_e.reshape(-1, d)
+        feats = pmesh.gather_batch(z_e.reshape(-1, d), mesh)
         ids = nearest_codebook_indices(feats, codebook)
         dead = torch.bincount(ids.long(), minlength=k) == 0
         draw_on = generator.device if generator is not None else codebook.device
@@ -143,18 +164,26 @@ class VQVAETrainer:
     def __init__(self, model: VectorQuantizedVAE, lr: float = 1e-4, beta: float = 2.0,
                  log_dir: str = "./logs/vqvae", ckpt_dir: str = "./models/vqvae",
                  seed: int = 0, codebook_restart: bool = False,
-                 device: Optional[str | torch.device] = None):
+                 device: Optional[str | torch.device] = None, mesh=None):
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.lr = lr
         self.beta = beta
         self.seed = seed
-        self.writer = MetricsWriter(log_dir)
+        self.mesh = mesh
+        self.main = pmesh.is_main_rank(mesh)
+        self.writer = MetricsWriter(log_dir) if self.main else NullWriter()
         self.ckpt = Checkpointer(ckpt_dir)
+        if pmesh.axis_size(mesh, "data") > 1:
+            group = mesh.get_group("data")
+            for m in model.modules():
+                if isinstance(m, BatchNorm2d):
+                    m.process_group = group
         self.eval_step = make_eval_step(model)
         self.reconstruct = make_reconstruct(model)
         # opt-in dead-code revival (off = reference parity)
-        self.restart_dead = make_restart_dead_codes(model) if codebook_restart else None
+        self.restart_dead = (make_restart_dead_codes(model, mesh) if codebook_restart
+                             else None)
         self.optimizer: Optional[torch.optim.Optimizer] = None
         self.train_step = None
         self.steps = 0
@@ -167,7 +196,7 @@ class VQVAETrainer:
             if isinstance(m, torch.nn.BatchNorm2d):
                 m.reset_running_stats()
         self.optimizer = make_optimizer(self.model, self.lr)
-        self.train_step = make_train_step(self.model, self.optimizer, self.beta)
+        self.train_step = make_train_step(self.model, self.optimizer, self.beta, self.mesh)
         self.steps = 0
 
     def _state(self) -> dict:
@@ -218,24 +247,29 @@ class VQVAETrainer:
 
             losses = self.evaluate(test_loader)
             self.writer.add_scalars("loss/test/", losses, self.steps)
-            print(f"epoch {epoch}, test_recon = {losses['reconstruction']:.6f} | {timer.stats}")
+            if self.main:
+                print(f"epoch {epoch}, test_recon = {losses['reconstruction']:.6f} "
+                      f"| {timer.stats}")
             if fixed_images is not None:
                 recon = self.reconstruct(self._images(fixed_images))
                 self.writer.add_image_grid("reconstruction", recon.cpu().numpy(), epoch + 1)
             total = losses["reconstruction"]
             if best_loss is None or total < best_loss:
                 best_loss = total
-                self.ckpt.save("best", self._state())
-            self.ckpt.save(f"model_{epoch + 1}", self._state())
+                if self.main:
+                    self.ckpt.save("best", self._state())
+            if self.main:
+                self.ckpt.save(f"model_{epoch + 1}", self._state())
         return best_loss if best_loss is not None else float("nan")
 
     def evaluate(self, loader) -> dict:
-        """Mean eval terms over ``loader``'s batches."""
+        """Mean eval terms over ``loader``'s batches (and over the ``data``
+        ranks' shards, with a mesh)."""
         totals: dict[str, float] = {}
         count = 0
         for images in loader:
             for k, v in self.eval_step(self._images(images)).items():
-                totals[k] = totals.get(k, 0.0) + float(v)
+                totals[k] = totals.get(k, 0.0) + float(pmesh.data_mean(v, self.mesh))
             count += 1
         if count == 0:
             return {"reconstruction": float("nan"), "quantization": float("nan")}

@@ -103,3 +103,11 @@ def make_grid(
     if c == 1:
         grid = np.repeat(grid, 3, axis=-1)
     return (grid * 255).astype(np.uint8)
+
+
+class NullWriter:
+    """A ``MetricsWriter`` that writes nothing (the ranks of a process group
+    other than rank 0)."""
+
+    def __getattr__(self, name):
+        return lambda *args, **kwargs: None

@@ -146,7 +146,8 @@ def test_resolve_extractor_branches(tmp_path):
 def test_frechet_distance_regularises_a_non_finite_root(monkeypatch):
     """Where scipy returns a non-finite square root (a singular covariance
     product, fewer clips than feature dims), the distance is taken with
-    1e-6 I added to both covariances."""
+    1e-6 I added to both covariances, in the root and in the trace: the
+    exact distance of the regularised Gaussians."""
     from scipy import linalg
 
     rng = np.random.RandomState(3)
@@ -154,7 +155,8 @@ def test_frechet_distance_regularises_a_non_finite_root(monkeypatch):
     (mu1, s1), (mu2, s2) = metrics.gaussian_stats(a), metrics.gaussian_stats(b)
     eye = np.eye(8) * 1e-6
     root = linalg.sqrtm((s1 + eye) @ (s2 + eye)).real
-    want = float((mu1 - mu2) @ (mu1 - mu2) + np.trace(s1 + s2 - 2.0 * root))
+    want = float((mu1 - mu2) @ (mu1 - mu2)
+                 + np.trace(s1 + eye + s2 + eye - 2.0 * root))
     real_sqrtm, calls = linalg.sqrtm, []
 
     def nan_once(m):

@@ -192,7 +192,7 @@ def test_config_targets_resolve_to_the_port():
 def test_package_imports_with_jax_and_mage_tpu_blocked():
     code = (
         "import sys\n"
-        "for name in ('jax', 'flax', 'optax', 'orbax', 'mage_tpu'):\n"
+        "for name in ('jax', 'flax', 'optax', 'orbax', 'mage_tpu', 'transformers'):\n"
         "    sys.modules[name] = None\n"
         "import mage_tpu_torch, mage_tpu_torch.config, mage_tpu_torch.ops\n"
         "import mage_tpu_torch.models, mage_tpu_torch.compat.from_jax\n"
@@ -215,6 +215,11 @@ def test_package_imports_with_jax_and_mage_tpu_blocked():
         "from mage_tpu_torch.cli import (eval_fvd_e2e, eval_precision, eval_speed_control,\n"
         "    eval_speed_control_cater, train_fvd_extractor)\n"
         "from mage_tpu_torch.compat import convert, reference\n"
+        "from mage_tpu_torch.cli import (probe_direction_binding, probe_direction_binding2,\n"
+        "    probe_text_sensitivity)\n"
+        "import mage_tpu_torch.utils.profiling, mage_tpu_torch.models.text_heads\n"
+        "import mage_tpu_torch.parallel, mage_tpu_torch.parallel.mesh\n"
+        "from mage_tpu_torch.parallel import dryrun, partitioning, tensor_parallel, time_layouts\n"
         "print('ok')\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
@@ -225,6 +230,10 @@ def test_package_imports_with_jax_and_mage_tpu_blocked():
 
 _FORBIDDEN = re.compile(r"^\s*(?:import|from)\s+(jax|flax|optax|orbax|mage_tpu)\b",
                         re.MULTILINE)
+_TRANSFORMERS = re.compile(r"^\s*(?:import|from)\s+transformers\b", re.MULTILINE)
+# the data package's optional HFTokenizer (a copy of the JAX package's)
+# reads a local pretrained tokenizer through transformers when a user makes one
+_TRANSFORMERS_ALLOWED = {"mage_tpu_torch/data/tokenizers.py"}
 
 
 def test_no_jax_or_mage_tpu_import_in_the_port():
@@ -232,11 +241,16 @@ def test_no_jax_or_mage_tpu_import_in_the_port():
         ROOT / name for name in ("chip_smoke.py", "gn_conv_probe.py", "axial_block_probe.py")]
     hits = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
             for f in files for m in _FORBIDDEN.finditer(f.read_text())]
+    hits += [f"{f.relative_to(ROOT)}: {m.group(0).strip()}" for f in files
+             if str(f.relative_to(ROOT)) not in _TRANSFORMERS_ALLOWED
+             for m in _TRANSFORMERS.finditer(f.read_text())]
     assert not hits, hits
     package = ROOT / "mage_tpu_torch"
     scanned = {f.relative_to(package).parts[0] for f in files if package in f.parents}
-    assert {"cli", "compat", "data", "evals", "models", "ops", "training", "utils"} <= scanned
+    assert {"cli", "compat", "data", "evals", "models", "ops", "parallel", "training",
+            "utils"} <= scanned
     assert _FORBIDDEN.search("from mage_tpu.ops import vq")
+    assert _TRANSFORMERS.search("    from transformers import BertConfig")
     assert not _FORBIDDEN.search("from mage_tpu_torch.ops import vq")
 
 

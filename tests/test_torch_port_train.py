@@ -449,9 +449,18 @@ def test_kernel_route_gradients_are_the_plain_versions():
 
 
 def test_spectral_norm_basic_block_raises():
-    """JAX's ``spectral`` option is set by no shipped config and not ported."""
-    with pytest.raises(NotImplementedError, match="spectral"):
-        tl.BasicBlock3D(32, 32, spectral=True)
+    """JAX's ``spectral`` option builds spectral-norm convs (held to flax in
+    ``test_torch_port_utils.py``), whose power-iteration state is part of the
+    state dict: a plain block's state dict, which lacks it, raises on a
+    strict load."""
+    with torch.random.fork_rng():  # the blocks' init leaves the global draws as they were
+        block = tl.BasicBlock3D(32, 32, spectral=True)
+        assert isinstance(block.conv1, tl.SpectralConv3d)
+        assert isinstance(block.conv2, tl.SpectralConv3d)
+        assert not isinstance(tl.BasicBlock3D(32, 32).conv1, tl.SpectralConv3d)
+        assert {"conv1.u", "conv1.sigma", "conv2.u", "conv2.sigma"} <= set(block.state_dict())
+        with pytest.raises(RuntimeError, match="conv1.u"):
+            block.load_state_dict(tl.BasicBlock3D(32, 32).state_dict())
 
 
 # ---- (h) the trainer, checkpoints and resume --------------------------------
