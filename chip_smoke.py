@@ -95,7 +95,15 @@ fatal on failure (exit code 1; 2 when there is no GPU or no package):
     held to the counts ``probe_steps`` predicts, every kernel launch at a new
     shape held against its plain version, and its JSON result printed with
     its wall seconds;
-15. the rest of the package: MAGE with the BERT text head
+15. the diagnostics phase, in the same directory after the probes:
+    ``cli.diag_ar_drift`` and ``cli.diag_recon_bound`` on the
+    ``train_cater_e2e`` run, ``cli.diag_magep_semantic`` and
+    ``cli.diag_magep_drift`` on the ``train_cater_kl_e2e`` run and
+    ``cli.eval_mnist2_ceiling`` on the ``train_mnist2_e2e`` run, each with its
+    launches held to the counts ``diag_steps`` predicts, every kernel launch
+    at a new shape held against its plain version, its report read back from
+    the run directory, and a line with its wall seconds and headline numbers;
+16. the rest of the package: MAGE with the BERT text head
     (``BertTextualHead`` at bert-base-uncased's widths, random weights) in
     place of the caption encoder, generating at the main path's shapes
     (launches, frames/s, the text encoder's ms, peak memory) and, in f32 at
@@ -109,7 +117,7 @@ fatal on failure (exit code 1; 2 when there is no GPU or no package):
     loss terms equal the plain trainer's within 1e-5 relative, batch-parallel
     cached generation on that mesh equal to the plain ids, and
     ``parallel.dryrun --devices 4`` over gloo;
-16. one JSON line with every kernel's numbers, then the closing JSON line.
+17. one JSON line with every kernel's numbers, then the closing JSON line.
 
 The cli phase also writes the trained MAGE core as a reference checkpoint
 (``{"state_dict": {"module." + key: tensor}}``), converts it with
@@ -2342,9 +2350,10 @@ def run_e2e_phase(torch, kernels, card: str) -> dict:
     s/step (CUDA events), materialize s, the FVD's s on the card
     (random-init I3D), peak GiB and the launches. Then the evals phase
     (``run_evals_phase``) on the runs of ``EVAL_RUNS``, in the same
-    directory and under the same probe, and the probes phase
-    (``run_probes_phase``) -> (the chains' lines, the evals' lines, the
-    probes' lines)."""
+    directory and under the same probe, the probes phase
+    (``run_probes_phase``) and the diagnostics phase (``run_diags_phase``)
+    -> (the chains' lines, the evals' lines, the probes' lines, the
+    diagnostics' lines)."""
     import tempfile
 
     from mage_tpu_torch.models.autoencoder_kl import AutoencoderKL, ResnetBlock
@@ -2397,13 +2406,14 @@ def run_e2e_phase(torch, kernels, card: str) -> dict:
                                 for r in rows}}
             log("e2e run: " + json.dumps(line))
             lines[name] = line
-            if name not in EVAL_RUNS + PROBE_RUNS:  # a full-width chain's checkpoints
+            if name not in EVAL_RUNS + PROBE_RUNS + DIAG_RUNS:  # a full-width chain's checkpoints
                 shutil.rmtree(out_dir)               # take gigabytes
         log(f"e2e phase took {time.perf_counter() - t_phase:.1f} s")
         evals = run_evals_phase(torch, kernels, card, tmp, probe)
         probes = run_probes_phase(torch, kernels, card, tmp, probe)
+        diags = run_diags_phase(torch, kernels, card, tmp, probe)
     torch.backends.cudnn.allow_tf32 = tf32
-    return lines, evals, probes
+    return lines, evals, probes, diags
 
 
 # ---- the evals phase -----------------------------------------------------------
@@ -2594,6 +2604,125 @@ def run_probes_phase(torch, kernels, card: str, tmp: str, probe) -> dict:
         log("probes run: " + json.dumps(line))
         lines[label] = line
     log(f"probes phase took {time.perf_counter() - t_phase:.1f} s")
+    return lines
+
+
+# ---- the diagnostics phase --------------------------------------------------
+
+# the chains' runs the diagnostics read: discrete CATER, MAGE+ CATER, double MNIST
+DIAG_RUNS = ("train_cater_e2e", "train_cater_kl_e2e", "train_mnist2_e2e")
+# the numbers each diagnostic's line shows from its report
+DIAG_HEADLINES = {
+    "diag_ar_drift": ("moving_fraction", "teacher_forced", "rollout", "agreement"),
+    "diag_recon_bound": ("stage1", "eval_psnr"),
+    "diag_magep_semantic": ("kl_nats", "moving_frac", "tf_posterior_mse_moving",
+                            "tf_prior_mse_moving", "gt_moving_energy", "gen_moving_energy"),
+    "diag_magep_drift": ("slot1_mse", "slot1_signal_msq"),
+    "eval_mnist2_ceiling": ("val_recon_psnr", "val_ssim", "codebook_used",
+                            "recon_psnr_vs_gt_upper_bound", "recon_direction_acc_ceiling"),
+}
+
+
+def diag_steps(tmp: str) -> list:
+    """(label, entry point, argv, predicted launches, report path) of the
+    diagnostics phase, for the CATER chains' L=10 frames. ``diag_ar_drift``
+    encodes its 6 clips in one call (vq 1), runs one teacher-forced eval-mode
+    forward through the 4 spatial blocks (axial 4) and one cached generate
+    (4L axial, 2L cached): vq 1, axial 4 + 4L, cached 2L. ``diag_recon_bound``
+    encodes frames 0, 12 and 23 of its 8 clips (3) and each clip's 24 stored
+    frames (8): vq 11; its decodes run no kernel. ``diag_magep_semantic``
+    encodes on the KL-AE (no kernel) and runs two teacher-forced forwards and
+    one cached generate: axial 8 + 4L, cached 2L; ``diag_magep_drift`` one
+    forward and one generate: axial 4 + 4L, cached 2L; neither decodes, so
+    neither runs gn_conv. ``eval_mnist2_ceiling`` encodes frame 0 and frame
+    10 of the 16 val clips (2) and the 16 tracking clips of 16 frames in
+    chunks of 512 frames (1): vq 3."""
+    from mage_tpu_torch.cli import (diag_ar_drift, diag_magep_drift, diag_magep_semantic,
+                                    diag_recon_bound, eval_mnist2_ceiling)
+
+    cater, cater_kl, mnist2 = (os.path.join(tmp, name) for name in DIAG_RUNS)
+    length = 10
+
+    def generate(forwards: int) -> dict:  # teacher-forced forwards + one cached generate
+        return {"axial_slot_attention": 4 * forwards + 4 * length,
+                "cached_slot_attention": 2 * length}
+
+    kl_data = ["--num-train", "16", "--num-val", "8", "--device", "cuda"]  # the chain's
+    mnist2_chunks = -(-(16 * 16) // eval_mnist2_ceiling.ENCODE_CHUNK)
+    return [
+        ("diag_ar_drift", diag_ar_drift.main,
+         ["--run", cater, "--dataset", "caterv1", "--num-train", "16", "--num-val", "8",
+          "--device", "cuda"], {"vq_nearest": 1, **generate(1)},
+         os.path.join(cater, "diag_ar_drift.json")),
+        ("diag_recon_bound", diag_recon_bound.main, ["--run", cater, "--device", "cuda"],
+         {"vq_nearest": 3 + 8}, os.path.join(cater, "diag_recon_bound.json")),
+        ("diag_magep_semantic", diag_magep_semantic.main, ["--run", cater_kl] + kl_data,
+         generate(2), os.path.join(cater_kl, "diag_magep_semantic.json")),
+        ("diag_magep_drift", diag_magep_drift.main, ["--run", cater_kl] + kl_data,
+         generate(1), os.path.join(cater_kl, "diag_magep_drift.json")),
+        ("eval_mnist2_ceiling", eval_mnist2_ceiling.main,
+         ["--run", mnist2, "--num-train", "64", "--num-val", "16", "--device", "cuda"],
+         {"vq_nearest": 2 + mnist2_chunks}, os.path.join(mnist2, "e2e_metrics.json")),
+    ]
+
+
+def without_split_accuracies(value):
+    """``diag_ar_drift``'s report without its accuracies over moving or
+    static tokens, the values that are nan where a split is empty."""
+    if isinstance(value, dict):
+        return {k: without_split_accuracies(v) for k, v in value.items()
+                if not k.endswith(("moving", "static"))}
+    if isinstance(value, list):
+        return [without_split_accuracies(v) for v in value]
+    return value
+
+
+def run_diags_phase(torch, kernels, card: str, tmp: str, probe) -> dict:
+    """The five run diagnostics through their ``main`` on the chains' runs in
+    ``tmp``: each call's launches must be ``diag_steps``', every kernel
+    launch at a new shape must hold against its plain version
+    (``E2eProbe.hold``), its report must be in its run directory (a
+    ``diag_*.json`` equal to what ``main`` returned; ``eval_mnist2_ceiling``'s
+    two records the last lines of ``e2e_metrics.json``), and every number in
+    it must be finite but the accuracies over moving or static tokens (nan
+    over an empty split, as JAX's script gives them). A line per tool (wall
+    s, launches, held, the report's headline numbers) -> {label: line}."""
+    t_phase = time.perf_counter()
+    lines = {}
+    for label, fn, argv, want, report in diag_steps(tmp):
+        probe.reset()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out, launches, routes = count_launches(torch, kernels, lambda: fn(argv))
+        wall = time.perf_counter() - t0
+        expect(launches, want, label)
+        held = probe.hold()
+        if set(held) != {k for k, n in launches.items() if n}:
+            raise AssertionError(f"{label}: held {sorted(held)}, launched {launches}")
+        with open(report) as fp:
+            if label == "eval_mnist2_ceiling":
+                written = [{k: v for k, v in json.loads(row).items() if k != "time"}
+                           for row in fp][-2:]
+                out = list(out)
+            else:
+                written = json.load(fp)
+        if json.dumps(written, sort_keys=True) != json.dumps(out, sort_keys=True):
+            raise AssertionError(f"{label}: {report} does not hold the report")
+        if label == "eval_mnist2_ceiling":
+            out = {k: v for record in out for k, v in record.items()}
+        checked = without_split_accuracies(out) if label == "diag_ar_drift" else out
+        bad = [k for k, v in checked.items() if not all(map(math.isfinite, numbers(v)))]
+        if bad:
+            raise AssertionError(f"{label}: non-finite {bad}")
+        line = {"run": label, "card": card, "wall_s": wall,
+                "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                "launches": {k: v for k, v in launches.items() if v}, "vq_variants": routes,
+                "held": held, "report": os.path.relpath(report, tmp),
+                "headline": {k: out[k] for k in DIAG_HEADLINES[label]}}
+        log("diags run: " + json.dumps(line))
+        lines[label] = line
+    log(f"diagnostics phase took {time.perf_counter() - t_phase:.1f} s")
     return lines
 
 
@@ -2997,7 +3126,7 @@ def main() -> int:
         log(f"stage-1 f32 GPU-vs-CPU check took {time.perf_counter() - t0:.1f} s")
         run_cli_phase(torch, np, kernels, smi)
         run_kvquant_phase(torch, np, build_pipeline, kernels, smi)
-        e2e_lines, evals_lines, probe_lines = run_e2e_phase(torch, kernels, smi)
+        e2e_lines, evals_lines, probe_lines, diag_lines = run_e2e_phase(torch, kernels, smi)
         t0 = time.perf_counter()
         bert = run_bert_phase(torch, np, kernels, smi)
         run_spectral_check(torch, smi)
@@ -3006,10 +3135,10 @@ def main() -> int:
         torch.backends.cudnn.allow_tf32 = False
         run_parallel_check(torch, np, build_pipeline, kernels, smi)
         log(f"the rest of the package took {time.perf_counter() - t0:.1f} s")
-        for row in rows:  # the chains of the e2e phase, the evals, the probes
+        for row in rows:  # the chains of the e2e phase, the evals, the probes, the diags
             row["bert_launches"] = bert["launches"].get(row["name"], 0)
             for key, phase in (("e2e", e2e_lines), ("evals", evals_lines),
-                               ("probes", probe_lines)):
+                               ("probes", probe_lines), ("diags", diag_lines)):
                 row[f"{key}_launches"] = sum(line["launches"].get(row["name"], 0)
                                              for line in phase.values())
                 errs = [line["held"][row["name"]]["max_abs_err"] for line in phase.values()
@@ -3043,7 +3172,8 @@ def main() -> int:
     for row in rows:
         for key in ("ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err",
                     "conv_only_ms", "unfused_ms", "train_ms", "train_bound_ms", *stage1_keys,
-                    "e2e_max_abs_err", "evals_max_abs_err", "probes_max_abs_err"):
+                    "e2e_max_abs_err", "evals_max_abs_err", "probes_max_abs_err",
+                    "diags_max_abs_err"):
             if row[key] is not None and not math.isfinite(row[key]):
                 print(f"chip_smoke: {row['name']} {key} = {row[key]}", file=sys.stderr)
                 return 1
@@ -3052,7 +3182,7 @@ def main() -> int:
             "train_launches", "train_ms", "train_bound_ms", "stage1_launches",
             "stage1_eval_launches", *stage1_keys, "e2e_launches", "e2e_max_abs_err",
             "evals_launches", "evals_max_abs_err", "probes_launches", "probes_max_abs_err",
-            "bert_launches")
+            "diags_launches", "diags_max_abs_err", "bert_launches")
     print(json.dumps({"kernels": [{k: row[k] for k in keys} for row in rows]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}),

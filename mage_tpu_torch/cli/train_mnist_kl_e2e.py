@@ -177,16 +177,18 @@ def build_pipeline(args, model, device):
     return e2e.build_stage2_pipeline(p, model, device, args.seed)
 
 
-def sample_latents(moments, gen, logvar_shift=0.0):
+def sample_latents(moments, gen, logvar_shift=0.0, noise=None):
     """(..., 8) bf16 moments -> (..., 4) bf16 latents: one posterior sample
-    per call (the stochastic per-step targets), its standard normal drawn
-    from ``gen`` in f32. ``logvar_shift`` quiets the posterior post hoc."""
+    per call (the stochastic per-step targets), its standard normal
+    ``noise`` or, when not given, drawn from ``gen`` in f32.
+    ``logvar_shift`` quiets the posterior post hoc."""
     mom = moments.float()
     if logvar_shift:
         mean, logvar = mom.chunk(2, dim=-1)
         mom = torch.cat([mean, logvar + logvar_shift], dim=-1)
     post = DiagonalGaussian(mom)
-    noise = torch.randn(post.mean.shape, generator=gen, device=gen.device)
+    if noise is None:
+        noise = torch.randn(post.mean.shape, generator=gen, device=gen.device)
     return post.sample(noise).to(torch.bfloat16)
 
 

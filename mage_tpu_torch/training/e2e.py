@@ -59,6 +59,16 @@ def log_metrics(out_dir, record, name="e2e_metrics.json"):
     print("METRIC", json.dumps(record), flush=True)
 
 
+def write_report(record, run: str, name: str, path=None) -> str:
+    """Write a diagnostic's report as indented JSON to ``path``, by default
+    ``<run>/<name>.json`` -> the path written."""
+    path = path or os.path.join(run, f"{name}.json")
+    with open(path, "w") as fp:
+        json.dump(record, fp, indent=2)
+    print(f"report: {path}", flush=True)
+    return path
+
+
 def mse_to_psnr(mse, data_range=1.0):
     """PSNR in dB of one MSE (-> float) or of a tensor of them (-> tensor)."""
     if torch.is_tensor(mse):
