@@ -1,0 +1,8 @@
+"""The ``gn_conv`` kernel's share of its roofline over the profiled calls
+(``readers.roofline_pct``, ``counts.kernels.gn_conv``)."""
+
+from benchmark.readers import roofline_pct
+
+
+def read(rec):
+    return roofline_pct(rec, "gn_conv")
