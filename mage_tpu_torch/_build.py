@@ -9,6 +9,9 @@ finds the library already built loads it without compiling.
 Each C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; :class:`Kernel` raises if that is not 0. A wrapper
 never synchronises and allocates its outputs itself with ``torch.empty``.
+Each op's launcher (the Python function that checks the inputs, allocates
+the outputs and calls the entry point) is decorated with :func:`launcher`,
+which counts its launches and their host time in ``utils.trace``.
 """
 
 from __future__ import annotations
@@ -20,10 +23,13 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 from typing import Sequence
 
 import torch
+
+from mage_tpu_torch.utils import trace
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -132,6 +138,34 @@ class Kernel:
             describe.restype = ctypes.c_char_p
             raise RuntimeError(
                 f"{self.symbol}: CUDA error {err}: {describe(err).decode()}")
+
+
+_launching = threading.local()
+
+
+def launcher(kernel: str):
+    """Decorate an op's launcher: each call that returns counts one launch
+    of ``kernel`` with its host nanoseconds from entry to return, in the
+    innermost open span (``trace.count_launch``). A launcher called by
+    another (gn_conv's statistics pass) counts its launch with no time of
+    its own: the caller's time holds it."""
+
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            nested = getattr(_launching, "on", False)
+            start = trace.now_ns()
+            _launching.on = True
+            try:
+                out = fn(*args, **kwargs)
+            finally:
+                _launching.on = nested
+            trace.count_launch(kernel, 0 if nested else trace.now_ns() - start)
+            return out
+
+        return call
+
+    return wrap
 
 
 def stream_ptr(device: torch.device) -> int:

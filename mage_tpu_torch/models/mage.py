@@ -40,6 +40,7 @@ from mage_tpu_torch.models.layers import (
     TransformerTextEncoder,
     lecun_normal_,
 )
+from mage_tpu_torch.utils import trace
 
 
 GN_GROUPS = 32  # groups of the continuous head's GroupNorm
@@ -219,21 +220,22 @@ class FlatAxialDecoder(nn.Module):
         ``kv_quant`` alone picks the attention; a cache that ``init_cache``
         made under another ``kv_quant`` raises."""
         bits = KV_QUANT[self.kv_quant]
-        x = self.context_linear(slot) if is_anchor else self.in_linear(slot)
-        x = x + self.T_positional_embedding[pos]
-        for i, block in enumerate(self.blocks):
-            if i % 3 == 0:
-                entry = cache[f"layer_{i}"]
-                if len(entry) != (2 if bits is None else 4):
-                    raise ValueError(f"a cache of {len(entry)}-tuples under "
-                                     f"kv_quant={self.kv_quant!r}: make it with init_cache")
-                if bits is not None:
-                    x = block.incremental_temporal_quant(x, *entry, pos, bits=bits)
+        with trace.span("mage.slot", pos=pos):
+            x = self.context_linear(slot) if is_anchor else self.in_linear(slot)
+            x = x + self.T_positional_embedding[pos]
+            for i, block in enumerate(self.blocks):
+                if i % 3 == 0:
+                    entry = cache[f"layer_{i}"]
+                    if len(entry) != (2 if bits is None else 4):
+                        raise ValueError(f"a cache of {len(entry)}-tuples under kv_quant="
+                                         f"{self.kv_quant!r}: make it with init_cache")
+                    if bits is not None:
+                        x = block.incremental_temporal_quant(x, *entry, pos, bits=bits)
+                    else:
+                        x = block.incremental_temporal(x, *entry, pos)
                 else:
-                    x = block.incremental_temporal(x, *entry, pos)
-            else:
-                x = block.single_slot_spatial(x)
-        return x
+                    x = block.single_slot_spatial(x)
+            return x
 
     def head_slot(self, x: torch.Tensor) -> torch.Tensor:
         """Discrete head on one trunk slot (B, h, w, mc) -> logits."""

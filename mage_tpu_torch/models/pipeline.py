@@ -31,6 +31,7 @@ from mage_tpu_torch.models.autoencoder_kl import AutoencoderKL, DiagonalGaussian
 from mage_tpu_torch.models.layers import MAEncoder, TransformerTextEncoder
 from mage_tpu_torch.models.mage import FlatAxialDecoder, MAGECore
 from mage_tpu_torch.models.vqvae import VectorQuantizedVAE
+from mage_tpu_torch.utils import trace
 
 FIRST_STAGE_PREFIX = "first_stage_model."
 
@@ -326,10 +327,12 @@ class MagePipeline:
         and without gradients: ids for the VQ-VAE, a posterior sample for
         the KL-AE (its standard-normal ``noise`` drawn from ``generator``
         when not given)."""
-        images = torch.as_tensor(images).to(device=self.device, dtype=self.first_stage.dtype)
-        if self.first_stage.is_discrete:
-            return self.first_stage.encode(images)
-        return self.first_stage.encode(images, noise, generator)
+        with trace.span("mage.encode"):
+            images = torch.as_tensor(images).to(device=self.device,
+                                                dtype=self.first_stage.dtype)
+            if self.first_stage.is_discrete:
+                return self.first_stage.encode(images)
+            return self.first_stage.encode(images, noise, generator)
 
     def loss_terms(self, batch: Mapping[str, Any], *, train: bool = True,
                    test_flag: bool = False, params: Optional[Mapping[str, torch.Tensor]] = None,
@@ -395,32 +398,37 @@ class MagePipeline:
         defaults to ``use_cids``: exact for discrete ids, causal GroupNorm
         statistics for MAGE+, whose default is the naive reference loop.
         ``temperature`` and ``top_k`` sample ids with the cached sampler
-        instead of the greedy argmax."""
+        instead of the greedy argmax. The call is the root span
+        ``mage.generate`` of ``utils.trace``, with its stages under it."""
         if cached is None:
             cached = self.use_cids
-        dev = self.device
-        first = torch.as_tensor(batch["images"])[:, 0:1].to(device=dev,
-                                                             dtype=self.first_stage.dtype)
-        latents0 = self.encode_first_stage(first, posterior_noise, generator)
-        if latents0.is_floating_point():
-            latents0 = latents0.to(self.dtype)  # the core's dtype, as the JAX bench casts
-        text = torch.as_tensor(batch["text"]).to(dev)
-        speed = batch.get("speed")
-        if speed is not None:
-            speed = torch.as_tensor(speed).to(device=dev, dtype=self.dtype)
-        if video_noise is not None:
-            video_noise = torch.as_tensor(video_noise)
-        if cached:
-            latents = self.core.generate_cached(latents0, text, speed, video_noise=video_noise,
-                                            generator=generator, temperature=temperature,
-                                            top_k=top_k)
-        else:
-            if temperature > 0:
-                raise ValueError("temperature sampling requires cached=True")
-            latents = self.core.generate(latents0, text, speed, video_noise=video_noise,
-                                         generator=generator)
-        video = self.first_stage.decode(latents)
-        return torch.cat([first, video], dim=1)
+        with trace.span("mage.generate"):
+            dev = self.device
+            first = torch.as_tensor(batch["images"])[:, 0:1].to(device=dev,
+                                                                 dtype=self.first_stage.dtype)
+            latents0 = self.encode_first_stage(first, posterior_noise, generator)
+            if latents0.is_floating_point():
+                latents0 = latents0.to(self.dtype)  # the core's dtype, as the JAX bench casts
+            with trace.span("mage.inputs"):
+                text = torch.as_tensor(batch["text"]).to(dev)
+                speed = batch.get("speed")
+                if speed is not None:
+                    speed = torch.as_tensor(speed).to(device=dev, dtype=self.dtype)
+                if video_noise is not None:
+                    video_noise = torch.as_tensor(video_noise)
+            with trace.span("mage.ar_core"):
+                if cached:
+                    latents = self.core.generate_cached(
+                        latents0, text, speed, video_noise=video_noise, generator=generator,
+                        temperature=temperature, top_k=top_k)
+                else:
+                    if temperature > 0:
+                        raise ValueError("temperature sampling requires cached=True")
+                    latents = self.core.generate(latents0, text, speed,
+                                                 video_noise=video_noise, generator=generator)
+            with trace.span("mage.decode"):
+                video = self.first_stage.decode(latents)
+            return torch.cat([first, video], dim=1)
 
 
 def init_weights(module: nn.Module, generator: torch.Generator) -> None:

@@ -57,6 +57,7 @@ def _axial_plain(q, k, v, n_head: int) -> torch.Tensor:
     return torch.einsum("ghqk,gkhd->gqhd", w, vh).reshape(g, s, d).to(q.dtype)
 
 
+@_build.launcher("axial")
 def _axial_cuda(q, k, v, n_head: int) -> torch.Tensor:
     _build.check_cuda("axial_slot_attention", q, k, v)
     g, s, d = q.shape
@@ -146,6 +147,7 @@ def _check_block(x: torch.Tensor, params, n_head: int) -> None:
         raise ValueError("the kernel takes 16-byte aligned tensors")
 
 
+@_build.launcher("axial_block")
 def _block_cuda(x: torch.Tensor, params, n_head: int, eps: float) -> torch.Tensor:
     if x.dim() != 3:
         raise ValueError(f"axial_block_fused takes x (G, S, D), got {tuple(x.shape)}")

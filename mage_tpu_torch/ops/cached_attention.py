@@ -47,6 +47,7 @@ def _attn_plain(q, cache_k, cache_v, pos: int, n_head: int) -> torch.Tensor:
     return torch.einsum("nhk,knhd->nhd", w, vh).reshape(n, d).to(q.dtype)
 
 
+@_build.launcher("cached")
 def _attn_cuda(q, cache_k, cache_v, pos: int, n_head: int) -> torch.Tensor:
     _build.check_cuda("cached_slot_attention", q, cache_k, cache_v)
     n, d = q.shape

@@ -71,6 +71,7 @@ def _param_dtype(t: torch.Tensor) -> torch.Tensor:
     return t if t.dtype in _build.DTYPE_CODES else t.float()
 
 
+@_build.launcher("gn_stats")
 def _stats_cuda(x, gamma, beta, groups: int, eps: float):
     _build.check_cuda("gn_stats", x)
     if x.ndim != 4:
@@ -145,6 +146,7 @@ def _gn_conv_plain(x, gamma, beta, weight, bias, groups: int, eps: float) -> tor
     return silu_conv3x3_rows(x, a, b, weight, bias)
 
 
+@_build.launcher("gn_conv")
 def _gn_conv_cuda(x, gamma, beta, weight, bias, groups: int, eps: float) -> torch.Tensor:
     _build.check_cuda("gn_silu_conv3x3", x)
     for t in (gamma, beta, weight, bias):

@@ -62,6 +62,7 @@ def route(z_flat: torch.Tensor, codebook: torch.Tensor) -> str:
     return "simt"
 
 
+@_build.launcher("vq")
 def _vq_cuda(z_flat: torch.Tensor, codebook: torch.Tensor, with_codes: bool):
     _build.check_cuda("nearest_codebook_indices", z_flat, codebook)
     n, d = z_flat.shape

@@ -54,7 +54,7 @@ from mage_tpu_torch.parallel import partitioning, tensor_parallel
 from mage_tpu_torch.training.checkpoint import Checkpointer
 from mage_tpu_torch.training.lr import epoch_lr
 from mage_tpu_torch.training.pid import initial_pid_state, pid_update
-from mage_tpu_torch.utils import MetricsWriter, Timer
+from mage_tpu_torch.utils import MetricsWriter, Timer, trace
 from mage_tpu_torch.utils.metrics import NullWriter
 
 HOST_STATE = "trainer_state.json"
@@ -109,23 +109,32 @@ def make_mage_train_step(pipeline: MagePipeline, optimizer: torch.optim.Optimize
     terms, beta, alpha)`` makes the step's loss from the raw terms
     (``train_loss``, or the e2e chains' own weighting). ``params_fn()``
     gives the core's parameters for the forward (a placement's gathered
-    masters) in place of its own."""
+    masters) in place of its own. Each step is the root span
+    ``mage.train_step`` of ``utils.trace``, over ``mage.cast``,
+    ``mage.forward``, ``mage.backward`` and ``mage.adam``; it is timed, so
+    every step's spans carry their device milliseconds."""
     core = pipeline.core
 
     def train_step(batch: Mapping[str, Any], lr: float, beta, alpha: float,
                    generator: Optional[torch.Generator] = None,
                    posterior_noise=None, first_stage_noise=None) -> dict:
-        for group in optimizer.param_groups:
-            group["lr"] = lr
-        optimizer.zero_grad(set_to_none=True)
-        params = _forward_params(core, compute_dtype, params_fn)
-        terms = pipeline.loss_terms(
-            batch, train=True, params=params, compute_dtype=compute_dtype,
-            generator=generator, posterior_noise=posterior_noise,
-            first_stage_noise=first_stage_noise)
-        loss(pipeline, terms, beta, alpha).backward()
-        optimizer.step()
-        return {k: v.detach() for k, v in terms.items()}
+        with trace.span("mage.train_step", timed=True):
+            for group in optimizer.param_groups:
+                group["lr"] = lr
+            optimizer.zero_grad(set_to_none=True)
+            with trace.span("mage.cast"):
+                params = _forward_params(core, compute_dtype, params_fn)
+            with trace.span("mage.forward"):
+                terms = pipeline.loss_terms(
+                    batch, train=True, params=params, compute_dtype=compute_dtype,
+                    generator=generator, posterior_noise=posterior_noise,
+                    first_stage_noise=first_stage_noise)
+                final = loss(pipeline, terms, beta, alpha)
+            with trace.span("mage.backward"):
+                final.backward()
+            with trace.span("mage.adam"):
+                optimizer.step()
+            return {k: v.detach() for k, v in terms.items()}
 
     return train_step
 

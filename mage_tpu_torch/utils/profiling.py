@@ -6,7 +6,8 @@ writes it as Chrome/Perfetto JSON; ``enable_debug_checks`` turns on
 autograd's anomaly detection (what the JAX package's ``jax_debug_nans``
 replaced); the three FLOP helpers are the JAX package's, unchanged; and
 ``cost_analysis`` counts a call's FLOPs with PyTorch's ``FlopCounterMode``
-where the JAX package asks XLA's cost model.
+where the JAX package asks XLA's cost model, and its hand-written kernel
+launches with ``utils.trace``'s counters.
 """
 
 from __future__ import annotations
@@ -17,6 +18,8 @@ from typing import Iterator
 
 import torch
 
+from mage_tpu_torch.utils import trace
+
 TRACE_FILE = "trace.json"
 
 
@@ -25,7 +28,10 @@ def profile_trace(log_dir: str) -> Iterator[torch.profiler.profile]:
     """Trace the enclosed work with ``torch.profiler`` (CPU ops, plus CUDA
     kernels when a card is present) and write it to
     ``log_dir/trace.json`` (open in Perfetto or ``chrome://tracing``). The
-    profiler is yielded, so a caller can read ``key_averages()``."""
+    program's spans (``utils.trace``: ``mage.generate`` and its stages,
+    ``mage.train_step`` and its phases) appear in it as ranges of those
+    names around the operators and kernels they issued. The profiler is
+    yielded, so a caller can read ``key_averages()``."""
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
@@ -91,9 +97,23 @@ def cost_analysis(fn, *args, **kwargs) -> dict:
     call run once. The counterpart of the JAX package's
     ``jit_cost_analysis``; XLA's bytes-accessed has no counterpart here,
     since PyTorch runs the ops eagerly and compiles no program to read it
-    from."""
+    from.
+
+    ``FlopCounterMode`` cannot see the hand-written kernels, which launch
+    through ``ctypes``: when the call launched any, the dict also holds
+    ``kernel_launches``, the launches by kernel, whose work ``flops`` leaves
+    out. The call runs in its own span, ``mage.cost_analysis``, whose tree
+    of spans counts them."""
     from torch.utils.flop_counter import FlopCounterMode
 
-    with FlopCounterMode(display=False) as counter:
+    with trace.span("mage.cost_analysis") as outer, FlopCounterMode(display=False) as counter:
         fn(*args, **kwargs)
-    return {"flops": int(counter.get_total_flops())}
+    out = {"flops": int(counter.get_total_flops())}
+    launched: dict = {}
+    for s in trace.records():  # the outer span and the spans opened inside it
+        if s["root"] == outer.root and s["id"] >= outer.id:
+            for kernel, n in s["launches"].items():
+                launched[kernel] = launched.get(kernel, 0) + n
+    if launched:
+        out["kernel_launches"] = launched
+    return out
