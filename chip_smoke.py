@@ -9,10 +9,16 @@ fatal on failure (exit code 1; 2 when there is no GPU or no package):
 3. each kernel at its path's shapes, in bf16 and f32, against its plain
    PyTorch version on the same inputs (TF32 off), and timed beside the plain
    version and, where one exists, a single PyTorch library call (the
-   GroupNorm statistics kernel that feeds gn_conv has a row of its own);
+   GroupNorm statistics kernel that feeds gn_conv has a row of its own; the
+   VQ decode's fused tail, which replaces no TPU kernel, is timed at a MAGE
+   generate's 288 decoded frames beside the cuDNN layer chain it replaces);
 4. the MAGE path: ``MagePipeline.generate`` for ``config/mage_caterv1.yaml``
    at full width, 16 frames, batch 32, bf16, random weights from a seed,
-   with the kernels' launch counts read around one call;
+   with the kernels' launch counts read around one call (the fused decode
+   tail once per decode chunk: once here, in the fused-block, kv-quant,
+   BERT-head and profiled generates; the f32 first stages of the CLI, e2e,
+   evals, probes and diagnostics phases and the MAGE+ path launch it 0
+   times);
 5. a small f32 input through the same pipeline on the GPU and on the CPU
    (plain versions), which must agree;
 6. the MAGE+ path: the same for ``config/mage+_caterv2.yaml`` (KL-AE first
@@ -143,6 +149,7 @@ F32_FLOP_PER_S = 67e12
 BF16_TC_FLOP_PER_S = 989e12  # dense bf16 on the tensor cores
 
 BATCH, FRAMES, RES = 32, 16, 128
+L_GEN = 10  # the benchmark's generation length: 288 decoded frames at batch 32
 VQ_N, VQ_K, VQ_D = BATCH * 16 * 16, 512, 1024  # first-frame tokens, codebook
 AX_G, AX_S, AX_D, HEADS = BATCH * 16, 16, 512, 16  # one spatial block per slot
 CA_N, CA_L, CA_D = BATCH * 16 * 16, FRAMES, 512  # one temporal block per slot
@@ -524,6 +531,52 @@ def check_gn_stats(torch, gc, gen) -> dict:
         "bound_ms": totals["bound_ms"] / n_gen, "bound_by": "bytes",
         "library_ms": totals["library_ms"] / n_gen,
     }
+
+
+def check_vq_tail(torch, F, vt, gen) -> dict:
+    """The VQ decode's fused tail at a MAGE generate's decode (batch 32 x 9
+    generated frames = 288, h 128 px x 64 channels, x 64 px x 256, 3 output
+    channels), bf16: held to its plain version (f32 math, one rounding) within
+    one bf16 rounding step, and timed beside it and, as ``library_ms``, the
+    layer chain it replaces as the decoder runs it: cuDNN's channels-last 3x3
+    conv with bias on relu(h), the nearest upsample of x, the residual add,
+    ReLU, cuDNN's 1x1 conv and tanh, in bf16."""
+    n, hw, c, cout, o = BATCH * (L_GEN - 1), RES, 64, 256, 3
+    h = torch.randn(n, hw, hw, c, generator=gen, device="cuda").to(torch.bfloat16)
+    x = torch.randn(n, hw // 2, hw // 2, cout, generator=gen, device="cuda").to(torch.bfloat16)
+    w7 = (torch.randn(cout, c, 3, 3, generator=gen, device="cuda") / (9 * c) ** 0.5).to(
+        torch.bfloat16)
+    b7 = (torch.randn(cout, generator=gen, device="cuda") * 0.1).to(torch.bfloat16)
+    w8 = (torch.randn(o, cout, 1, 1, generator=gen, device="cuda") / cout ** 0.5).to(
+        torch.bfloat16)
+    b8 = (torch.randn(o, generator=gen, device="cuda") * 0.1).to(torch.bfloat16)
+    args = (h, x, w7, b7, w8, b8)
+    got = vt.vq_decode_tail(*args)
+    want = vt.vq_decode_tail(*args, impl="torch")
+    err = float((got.float() - want.float()).abs().max())
+    if not torch.allclose(got.float(), want.float(), rtol=BF16_RTOL, atol=1e-5):
+        raise AssertionError(f"vq_decode_tail: max abs err {err}")
+    del want
+    hn, xn = h.permute(0, 3, 1, 2), x.permute(0, 3, 1, 2)  # channels-last NCHW views
+    w7c = w7.contiguous(memory_format=torch.channels_last)
+
+    def chain():
+        y = F.conv2d(F.relu(hn), w7c, b7, padding=1)
+        y = F.relu(F.interpolate(xn, scale_factor=2, mode="nearest") + y)
+        return torch.tanh(F.conv2d(y, w8, b8))
+
+    nbytes = (h.numel() + x.numel() + got.numel() + w7.numel() + w8.numel()) * 2 + cout * 4
+    flops = 2.0 * n * hw * hw * (9 * c * cout + cout * o)
+    bnd, by = bound_ms(nbytes, flops, BF16_TC_FLOP_PER_S)
+    row = {"ms": time_ms(lambda: vt.vq_decode_tail(*args), iters=10),
+           "plain_ms": time_ms(lambda: vt.vq_decode_tail(*args, impl="torch"), iters=3),
+           "library_ms": time_ms(chain, iters=10), "bound_ms": bnd}
+    log(f"vq_decode_tail ({n} frames, {hw} px, {c} -> {cout} -> {o}): " + json.dumps(
+        {**row, "bound_by": by, "max_abs_err": err, "gb": nbytes / 1e9, "tflop": flops / 1e12,
+         "tflop_per_s": flops / row["ms"] * 1e-9}))
+    return {"name": "vq_decode_tail", "route": "cuda",
+            "source": "mage_tpu_torch/csrc/vq_decode_tail.cu", "replaces": None,
+            "max_abs_err": err, "bound_by": by, **row}
 
 
 def block_weights(torch, tl, gen, dtype):
@@ -1882,7 +1935,7 @@ def run_kvquant_phase(torch, np, build_pipeline, kernels, card: str) -> dict:
             torch, kernels, lambda: pipe.generate(batch, generator=gen.manual_seed(1),
                                                   cached=True))
         want = {"vq_nearest": 1, "axial_slot_attention": 4 * FRAMES,
-                "cached_slot_attention": 0 if kv else 2 * FRAMES}
+                "cached_slot_attention": 0 if kv else 2 * FRAMES, "vq_decode_tail": 1}
         expect(launches, want, f"generate with kv_quant={kv}")
         torch.cuda.reset_peak_memory_stats()
         times = []
@@ -2055,10 +2108,10 @@ class E2eProbe(Patches):
     (``training.e2e.make_mage_train_step``) and extractor step
     (``cli.train_fvd_extractor.make_train_step``), the host time of
     ``training.e2e.materialize`` and ``log_fvd`` (device synchronized), and
-    the kernel launches the chains make: the inputs and output of the first
-    launch of each distinct shape (for cached attention, of each of the
-    first, middle and last slot), which ``hold`` then holds against the
-    kernels' plain versions."""
+    the kernel launches the chains make (the VQ decode's fused tail too):
+    the inputs and output of the first launch of each distinct shape (for
+    cached attention, of each of the first, middle and last slot), which
+    ``hold`` then holds against the kernels' plain versions."""
 
     def reset(self) -> None:
         self.steps = {"stage1": [], "stage2": [], "extractor": []}
@@ -2074,7 +2127,7 @@ class E2eProbe(Patches):
     def __enter__(self) -> "E2eProbe":
         from mage_tpu_torch.cli import train_fvd_extractor
         from mage_tpu_torch.models import autoencoder_kl, layers
-        from mage_tpu_torch.ops import vq
+        from mage_tpu_torch.ops import vq, vq_tail
         from mage_tpu_torch.training import autoencoder_kl_trainer, e2e, vqvae_trainer
 
         probe, torch = self, self.torch
@@ -2123,6 +2176,15 @@ class E2eProbe(Patches):
                 return out
             return fn
 
+        def tail(old):
+            def fn(h, x, w7, b7, w8, b8, *, impl="auto"):
+                out = old(h, x, w7, b7, w8, b8, impl=impl)
+                if launches(impl, h):
+                    probe._keep(("vq_decode_tail", tuple(h.shape), h.dtype, tuple(x.shape),
+                                 tuple(w8.shape)), (h, x, w7, b7, w8, b8), (out,))
+                return out
+            return fn
+
         def timed_factory(stage):
             def wrap(old):
                 def factory(*args, **kwargs):
@@ -2162,6 +2224,7 @@ class E2eProbe(Patches):
         self._patch(autoencoder_kl, "gn_silu_conv3x3", gn_conv)
         self._patch(layers, "axial_slot_attention", axial)
         self._patch(layers, "cached_slot_attention", cached)
+        self._patch(vq_tail, "vq_decode_tail", tail)
         return self
 
     def hold(self) -> dict:
@@ -2172,12 +2235,14 @@ class E2eProbe(Patches):
         row's scale) on at most 1e-3 of the rows, codes the rows of the ids;
         gn_stats within 1e-5 relative of ``gn_affine_rows`` and gn_conv on
         those rows within ``F32_TOL`` of its largest output in f32, one
-        rounding step plus ``GN_BF16_ATOL`` in bf16 (as ``check_gn_conv``).
+        rounding step plus ``GN_BF16_ATOL`` in bf16 (as ``check_gn_conv``);
+        the VQ decode's fused tail within one bf16 rounding step.
         -> {kernel: {"shapes": n, "max_abs_err": e}}; raises on any miss."""
         from mage_tpu_torch.ops import axial_attention as ax
         from mage_tpu_torch.ops import cached_attention as ca
         from mage_tpu_torch.ops import gn_conv as gc
         from mage_tpu_torch.ops import vq
+        from mage_tpu_torch.ops import vq_tail as vt
 
         torch = self.torch
         errs = {}
@@ -2209,6 +2274,10 @@ class E2eProbe(Patches):
                     elif name == "cached_slot_attention":
                         q, ck, cv, pos, n_head, got = held
                         want = ca.cached_slot_attention(q, ck, cv, pos, n_head, impl="torch")
+                        note(name, key, close(got, want, key))
+                    elif name == "vq_decode_tail":
+                        *inputs, got = held
+                        want = vt.vq_decode_tail(*inputs, impl="torch")
                         note(name, key, close(got, want, key))
                     elif name == "vq_nearest":
                         z, cb, idx, codes = held
@@ -2733,7 +2802,7 @@ BERT_BASE = {"vocab_size": 30522, "hidden_size": 768, "num_hidden_layers": 12,
              "num_attention_heads": 12, "intermediate_size": 3072,
              "max_position_embeddings": 512, "type_vocab_size": 2}
 MAIN_PATH_LAUNCHES = {"vq_nearest": 1, "axial_slot_attention": 4 * FRAMES,
-                      "cached_slot_attention": 2 * FRAMES}
+                      "cached_slot_attention": 2 * FRAMES, "vq_decode_tail": 1}
 SPECTRAL_WIDTH, SPECTRAL_RTOL = 128, 1e-4
 
 
@@ -3045,6 +3114,7 @@ def main() -> int:
         from mage_tpu_torch.ops import cached_attention as ca
         from mage_tpu_torch.ops import gn_conv as gc
         from mage_tpu_torch.ops import vq
+        from mage_tpu_torch.ops import vq_tail as vt
     except ImportError as e:
         print(f"chip_smoke: the mage_tpu_torch package is missing ({e})", file=sys.stderr)
         return 2
@@ -3067,14 +3137,16 @@ def main() -> int:
         gen = torch.Generator(device="cuda").manual_seed(0)
         rows = [check_vq(torch, vq, gen), check_axial(torch, F, ax, gen),
                 check_cached(torch, F, ca, gen), check_gn_conv(torch, F, gc, gen),
-                check_gn_stats(torch, gc, gen), check_axial_block(torch, ax, tl, gen)]
+                check_gn_stats(torch, gc, gen), check_axial_block(torch, ax, tl, gen),
+                check_vq_tail(torch, F, vt, gen)]
         kernels = {"vq_nearest": vq.KERNEL, "axial_slot_attention": ax.KERNEL,
                    "cached_slot_attention": ca.KERNEL, "gn_silu_conv3x3": gc.KERNEL,
-                   "gn_stats": gc.KERNEL_STATS, "axial_block_fused": ax.KERNEL_BLOCK}
+                   "gn_stats": gc.KERNEL_STATS, "axial_block_fused": ax.KERNEL_BLOCK,
+                   "vq_decode_tail": vt.KERNEL}
         mage, mage_path = run_main_path(torch, np, build_pipeline, kernels, smi, want={
             "vq_nearest": 1, "axial_slot_attention": 4 * FRAMES,
             "cached_slot_attention": 2 * FRAMES, "gn_silu_conv3x3": 0, "gn_stats": 0,
-            "axial_block_fused": 0})
+            "axial_block_fused": 0, "vq_decode_tail": 1})
         run_reference_check(torch, np, build_pipeline)
         n_gn = sum(GN_CONV_SITES.values()) * (BATCH * (FRAMES - 1) // KL_CHUNK)
         magep, _ = run_main_path(torch, np, build_pipeline, kernels, smi,
@@ -3087,7 +3159,7 @@ def main() -> int:
         fused, fused_path = run_main_path(torch, np, build_pipeline, kernels, smi, want={
             "vq_nearest": 1, "axial_slot_attention": 0,
             "cached_slot_attention": 2 * FRAMES, "gn_silu_conv3x3": 0, "gn_stats": 0,
-            "axial_block_fused": 4 * FRAMES}, spatial_attn="fusedblock")
+            "axial_block_fused": 4 * FRAMES, "vq_decode_tail": 1}, spatial_attn="fusedblock")
         log("MAGE fusedblock beside flat: " + json.dumps({
             key: {"flat": mage_path[key], "fusedblock": fused_path[key]}
             for key in ("generated_frames_per_s", "generate_s", "peak_mem_gib", "stage_ms")}))

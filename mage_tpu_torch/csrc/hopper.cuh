@@ -1,5 +1,5 @@
-// Hopper building blocks shared by the TMA / wgmma kernels (gn_conv.cu,
-// axial_block.cu): mbarriers (a wait that traps after 2 s instead of hanging
+// Hopper building blocks shared by the TMA / wgmma kernels (vq.cu, gn_conv.cu,
+// axial_block.cu, vq_decode_tail.cu): mbarriers (a wait that traps after 2 s instead of hanging
 // the card), TMA tile loads, named barriers, the proxy fence that hands
 // thread-written shared memory to the tensor cores, wgmma shared-memory
 // descriptors and the m64nNk16 bf16 products with f32 accumulators, and the

@@ -11,7 +11,10 @@ the block's pointwise entry (relu and the two 1x1 convs), as in the JAX
 package. Public tensors are NHWC; convolutions run on NCHW views of them.
 
 ``encode`` (one ids-only vq launch) and ``decode`` are the frozen first
-stage's calls. ``forward`` is the training forward, ``(x_tilde, z_e,
+stage's calls; an f8 ``decode`` in bf16 on the card with autograd off runs the
+last block's final conv, its residual and the decoder's ReLU, 1x1 conv and
+tanh as one kernel (``ops.vq_tail``), so its 256-channel 128-px tensors are
+never written. ``forward`` is the training forward, ``(x_tilde, z_e,
 z_q_bar)``: the decoder runs on the straight-through codes of a detached
 codebook, and ``z_q_bar`` re-selects the codes from the attached codebook so
 that the quantization loss trains it.
@@ -35,6 +38,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from mage_tpu_torch.ops import vq_tail
 from mage_tpu_torch.ops.vq import (
     codebook_lookup,
     nearest_codebook_indices,
@@ -52,6 +56,10 @@ def _nhwc(x: torch.Tensor) -> torch.Tensor:
 
 def _upsample_nearest(x: torch.Tensor) -> torch.Tensor:
     return F.interpolate(x, scale_factor=2, mode="nearest")
+
+
+def _on_card(x: torch.Tensor) -> bool:
+    return x.is_cuda
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -180,11 +188,17 @@ class DecoderBlock(nn.Module):
 
     def forward(self, x):
         idp = x if self.id_path is None else self.id_path(x)
+        if self.upsample:
+            idp = _upsample_nearest(idp)
+        return idp + self.block[6:](self.trunk(x))
+
+    def trunk(self, x):
+        """The residual branch up to ``block[5]``'s output, at the output's
+        resolution: what its final relu and 3x3 conv read."""
         h = self.block[1](self.block[0](x))
         if self.upsample:
             h = _upsample_nearest(h)
-            idp = _upsample_nearest(idp)
-        return idp + self.block[2:](h)
+        return self.block[2:6](h)
 
 
 class _Codebook(nn.Module):
@@ -244,9 +258,31 @@ class VectorQuantizedVAE(nn.Module):
         return nearest_codebook_indices(z_e, self.codebook.embedding.weight)
 
     def decode(self, ids: torch.Tensor) -> torch.Tensor:
-        """(B, h, w) ids -> (B, H, W, C) frames in [-1, 1]."""
+        """(B, h, w) ids -> (B, H, W, C) frames in [-1, 1]. The f8 decoder's
+        tail (the last block's final conv, its residual, then ``decoder[7:]``)
+        runs as one ``vq_tail.vq_decode_tail`` kernel where ``_fused_tail``
+        holds, and as the layer chain otherwise."""
         z_q = codebook_lookup(self.codebook.embedding.weight, ids)
-        return _nhwc(self.decoder(_nchw(z_q)))
+        if not self._fused_tail(z_q):
+            return _nhwc(self.decoder(_nchw(z_q)))
+        x = _nchw(z_q)
+        for layer in self.decoder[:6]:
+            x = layer(x)
+        last, out = self.decoder[6], self.decoder[8]
+        h = last.trunk(x)
+        return vq_tail.vq_decode_tail(_nhwc(h).contiguous(), _nhwc(x).contiguous(),
+                                      last.block[7].weight, last.block[7].bias,
+                                      out.weight, out.bias)
+
+    def _fused_tail(self, z_q: torch.Tensor) -> bool:
+        """The fused tail's route: an f8 decode of a bf16 CUDA tensor with
+        autograd not recording, whose widths the kernel takes. CPU, f32, the
+        f4 decoder and the training ``forward`` run the layer chain."""
+        if self.down_ratio != 8 or z_q.dtype != torch.bfloat16 or torch.is_grad_enabled():
+            return False
+        conv = self.decoder[6].block[7]
+        return _on_card(z_q) and vq_tail.kernel_takes(conv.in_channels, conv.out_channels,
+                                                      self.decoder[8].out_channels)
 
     def forward(self, x: torch.Tensor):
         """(B, H, W, C) frames -> ``(x_tilde, z_e, z_q_bar)``, NHWC: the

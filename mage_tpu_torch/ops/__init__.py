@@ -11,3 +11,4 @@ from mage_tpu_torch.ops.vq import (
     nearest_with_codes,
     vq_straight_through,
 )
+from mage_tpu_torch.ops.vq_tail import vq_decode_tail

@@ -14,6 +14,7 @@ from mage_tpu_torch.ops import axial_attention as ax
 from mage_tpu_torch.ops import cached_attention as ca
 from mage_tpu_torch.ops import gn_conv as gc
 from mage_tpu_torch.ops import vq
+from mage_tpu_torch.ops import vq_tail as vt
 
 DTYPES = [torch.float32, torch.bfloat16]
 # f32: the same math in another order; bf16: one rounding step of the output
@@ -422,3 +423,77 @@ def test_generate_cached_with_an_int8_cache_launches_no_cached_kernel(gen):
     pipe.core.generate_model.kv_quant = None
     pipe.core.generate_cached(lat0, text, torch.rand(2, generator=gen, device="cuda"))
     assert ca.KERNEL.launches == before + 4  # one temporal block, 4 slots
+
+
+def _tail_inputs(gen, b, h, w, c=64, cout=256, o=3):
+    hh = torch.randn(b, h, w, c, generator=gen, device="cuda").to(torch.bfloat16)
+    x = torch.randn(b, h // 2, w // 2, cout, generator=gen, device="cuda").to(torch.bfloat16)
+    w7 = (torch.randn(cout, c, 3, 3, generator=gen, device="cuda") / (9 * c) ** 0.5)
+    b7 = torch.randn(cout, generator=gen, device="cuda") * 0.1
+    w8 = torch.randn(o, cout, 1, 1, generator=gen, device="cuda") / cout ** 0.5
+    b8 = torch.randn(o, generator=gen, device="cuda") * 0.1
+    return hh, x, *(t.to(torch.bfloat16) for t in (w7, b7, w8, b8))
+
+
+@pytest.mark.parametrize("b,h,w", [(288, 128, 128), (3, 22, 14), (2, 18, 30), (1, 2, 2),
+                                   (5, 34, 6), (1, 16, 8), (133, 16, 8)])
+def test_vq_tail_kernel_matches_plain(gen, b, h, w, monkeypatch):
+    """288 frames of 64 -> 128 px is the decode of a MAGE generate (batch 32,
+    L=10); the others are ragged against the 16 x 8-pixel tile (22 x 14, 18 x
+    30, 2 x 2, 34 x 6), one tile, and 133 tiles, one more than the card's
+    blocks, so one block walks two. The kernel and the plain version do the
+    same f32 math in other orders and round once: within one bf16 step of the
+    output."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    args = _tail_inputs(gen, b, h, w)
+    before = vt.KERNEL.launches
+    got = vt.vq_decode_tail(*args)
+    assert vt.KERNEL.launches == before + 1
+    want = vt.vq_decode_tail(*args, impl="torch")
+    assert got.shape == (b, h, w, 3) and got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), want.float(), **TOL[torch.bfloat16])
+    assert torch.equal(vt.vq_decode_tail(*args), got)  # deterministic
+
+
+def test_vq_tail_launches_once_per_decode_chunk(gen):
+    """A bf16 f8 decode under no_grad launches the kernel once per frame
+    chunk, counted in the enclosing span too; f32 and a decode with autograd
+    recording take the layer chain. The fused decode is no further from the
+    f32 decode than the bf16 layer chain is."""
+    from mage_tpu_torch.models.pipeline import FirstStageVQVAE
+    from mage_tpu_torch.models.vqvae import VectorQuantizedVAE
+    from mage_tpu_torch.utils import trace
+
+    torch.manual_seed(0)
+    model = VectorQuantizedVAE(input_dim=3, down_ratio=8, dim=256, K=64).cuda().eval()
+    ids = torch.randint(0, 64, (2, 6, 4, 4), generator=gen, device="cuda")
+    first = FirstStageVQVAE(model)
+    before = vt.KERNEL.launches
+    exact = first.decode(ids, max_chunk=5)  # f32
+    assert vt.KERNEL.launches == before
+    model.to(torch.bfloat16)
+    trace.clear()
+    with trace.span("mage.decode"):
+        fused = first.decode(ids, max_chunk=5)  # 12 frames: 3 chunks of 4
+    assert vt.KERNEL.launches == before + 3
+    assert trace.records()[-1]["launches"] == {"vq_tail": 3}
+    with torch.enable_grad():
+        chain = model.decode(ids.reshape(-1, 4, 4)).detach().reshape(fused.shape)
+    assert vt.KERNEL.launches == before + 3
+    err_fused = float((fused.float() - exact).abs().max())
+    err_chain = float((chain.float() - exact).abs().max())
+    assert err_fused <= err_chain + 2 ** -8
+
+
+def test_vq_tail_rejects_what_it_does_not_take(gen):
+    hh, x, w7, b7, w8, b8 = _tail_inputs(gen, 1, 8, 8)
+    with pytest.raises(TypeError):  # f32
+        vt.vq_decode_tail(hh.float(), x.float(), w7, b7, w8.float(), b8.float())
+    with pytest.raises(ValueError):  # odd H
+        vt.vq_decode_tail(hh[:, :7].contiguous(), x[:, :3].contiguous(), w7, b7, w8, b8)
+    with pytest.raises(ValueError):  # widths other than the f8 decoder's at dim 256
+        vt.vq_decode_tail(*_tail_inputs(gen, 1, 8, 8, 64, 512, 3))
+    with pytest.raises(ValueError):
+        vt.vq_decode_tail(*_tail_inputs(gen, 1, 8, 8, 64, 256, 1))
+    with pytest.raises(ValueError):  # not contiguous
+        vt.vq_decode_tail(hh.transpose(1, 2), x.transpose(1, 2), w7, b7, w8, b8)
