@@ -1,15 +1,14 @@
 """What every traffic driver and metric reader shares: the manifest and the
 files found by name, the seeded weights, the device's description, the
-profiler's trace reduced to kernel times and idle gaps, the wrappers that
-record spans and launch shapes around the program's own calls, and the
-check that no JAX module was loaded.
+profiler's trace reduced to kernel times and idle gaps, the wrapper that
+records spans around the program's own calls, and the check that no JAX
+module was loaded.
 
 Nothing here imports the program; a driver hands it the program's objects.
 """
 
 from __future__ import annotations
 
-import importlib
 import importlib.util
 import json
 import math
@@ -18,7 +17,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
-from typing import Any, Callable, Optional
+from typing import Any, Optional
 
 HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
@@ -153,7 +152,7 @@ def forbidden_modules() -> list:
     return sorted({name for name in sys.modules if name.split(".")[0] in FORBIDDEN})
 
 
-# ---- spans and launch shapes -------------------------------------------------------
+# ---- spans ------------------------------------------------------------------------
 
 
 class Spans:
@@ -192,54 +191,6 @@ class Spans:
 
         torch.cuda.synchronize()
         return {k: [s.elapsed_time(e) for s, e in v] for k, v in self.events.items()}
-
-
-class Launches:
-    """Shapes that reach the program's kernel entry points. ``patch(fn,
-    shape_of)`` replaces every reference to ``fn`` in the program's loaded
-    modules by a wrapper that appends ``shape_of(*args, **kwargs)`` (a list
-    of (kernel, shape) pairs, empty on a CPU tensor) while ``on``."""
-
-    def __init__(self, package: str):
-        self.package = package
-        self.on = False
-        self.shapes: list = []
-
-    def patch(self, fn: Callable, shape_of: Callable) -> None:
-        import torch
-
-        def call(*args, **kwargs):
-            if not self.on:
-                return fn(*args, **kwargs)
-            self.shapes.extend(shape_of(*args, **kwargs))
-            with torch.profiler.record_function(fn.__name__):
-                return fn(*args, **kwargs)
-
-        for name, module in list(sys.modules.items()):
-            if name.split(".")[0] != self.package or module is None:
-                continue
-            for attr, value in list(vars(module).items()):
-                if value is fn:
-                    setattr(module, attr, call)
-
-    def patch_kernels(self) -> None:
-        """Patch every entry point that a kernel file under
-        ``counts/kernels`` names, recording (kernel, shape) for each launch
-        that reaches one of its kernels."""
-        from benchmark.counts import kernels
-
-        by_entry: dict = {}
-        for name in kernels.names():
-            for entry, shape_of in kernels.load(name).ENTRIES.items():
-                by_entry.setdefault(entry, []).append((name, shape_of))
-        for entry, fns in by_entry.items():
-            module, func = entry.split(":")
-
-            def shapes(*args, _fns=fns, **kwargs):
-                found = ((name, shape_of(*args, **kwargs)) for name, shape_of in _fns)
-                return [(name, shape) for name, shape in found if shape is not None]
-
-            self.patch(getattr(importlib.import_module(module), func), shapes)
 
 
 # ---- the profiler's trace ---------------------------------------------------------

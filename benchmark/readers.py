@@ -16,21 +16,29 @@ def span_mean_ms(rec: dict, name: str):
     return statistics.fmean(spans) if spans else None
 
 
+def profiled(rec: dict) -> int:
+    """Calls or steps that ran under the profiler."""
+    return rec["profiled_calls"] if rec["kind"] == "generate" else rec["profiled_steps"]
+
+
 def roofline_pct(rec: dict, kernel: str):
-    """The least time the launches of ``kernel`` in the profiled calls could
-    take, from their shapes (``counts/kernels/<kernel>.py``), over the device
-    time its kernels took there (matched by their unqualified names: vq.cu
-    keeps its variants in namespaces), in percent."""
+    """The least time that the work of ``kernel`` in the profiled calls or
+    steps needs, over the device time its kernels took there (matched by
+    their unqualified names: vq.cu keeps its variants in namespaces), in
+    percent. The work is reckoned from the cell's configuration and mix
+    (``counts/kernels/<kernel>.py``'s pieces of one call or step, times the
+    calls or steps profiled), so it reads the same whether Python launched
+    each kernel or a CUDA graph replayed it."""
     trace = rec.get("trace")
-    shapes = [s for k, s in rec.get("launches", []) if k == kernel]
-    if not trace or not shapes:
+    if not trace:
         return None
     spec = kernels.load(kernel)
+    pieces = spec.pieces(rec["model"], rec["mix"], rec["itemsize"])
     device_s = sum(e - s for n, s, e in trace["device_events"]
                    if short_name(n).split("::")[-1] in spec.TRACE_NAMES)
-    if device_s <= 0:
+    if not pieces or device_s <= 0:
         return None
-    least = sum(least_seconds(*spec.count(*shape))[0] for shape in shapes)
+    least = profiled(rec) * sum(least_seconds(*piece)[0] for piece in pieces)
     return 100.0 * least / device_s
 
 

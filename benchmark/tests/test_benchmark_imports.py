@@ -33,6 +33,15 @@ def test_reference_imports_nothing_of_the_program():
     assert "mage_tpu_torch" not in loaded and "'mage_tpu'" not in loaded
 
 
+def test_the_yardstick_imports_nothing_of_the_program():
+    """The counts, the readers and the metrics reckon a kernel's work from
+    the configuration, not from the program's objects."""
+    files = [*(HERE / "counts").rglob("*.py"), *(HERE / "metrics").glob("*.py")]
+    for path in [HERE / "readers.py", *files]:
+        assert not _imported(path) & {"mage_tpu_torch", *harness.FORBIDDEN}, path
+        assert "mage_tpu_torch" not in path.read_text(), path
+
+
 def test_no_file_of_the_benchmark_imports_jax():
     for path in sorted(HERE.rglob("*.py")):
         assert not _imported(path) & set(harness.FORBIDDEN), path

@@ -125,14 +125,12 @@ def run(ctx) -> dict:
     pipe.load_state_dict(harness.make_weights(shapes, ctx.seed, dtype, dev))
     pool = make_pool(p, mix, ctx.seed, dev, dtype)
     gen = torch.Generator(device=dev).manual_seed(ctx.seed)
-    spans = launches = None
+    spans = None
     if ctx.trace:
         spans = harness.Spans()
         spans.wrap(pipe, "encode_first_stage", "encode")
         spans.wrap(pipe.core, core_method(mix), "ar_core")
         spans.wrap(pipe.first_stage, "decode", "decode")
-        launches = harness.Launches("mage_tpu_torch")
-        launches.patch_kernels()
 
     def call(i):
         return generate(pipe, pool[i % len(pool)], gen, mix)
@@ -160,7 +158,7 @@ def run(ctx) -> dict:
     while time.perf_counter() - t_start < ctx.seconds:
         if prof is not None and attempted == 0:
             prof.start()
-            launches.on = profiling = True
+            profiling = True
         t0 = time.perf_counter()
         try:
             video = call(attempted)
@@ -177,11 +175,10 @@ def run(ctx) -> dict:
         attempted += 1
         if profiling and attempted == profiled_calls:
             prof.stop()
-            launches.on = profiling = False
+            profiling = False
     window_s = time.perf_counter() - t_start
     if profiling:
         prof.stop()
-        launches.on = False
     harness.restore_host(threads)
     peak = torch.cuda.max_memory_allocated() if cuda else 0
     completed = int(torch.stack(finite).sum()) if finite else 0
@@ -192,10 +189,11 @@ def run(ctx) -> dict:
            "setup_s": setup_s,
            "peak_bytes": peak, "process_peak_bytes": max(peak, setup_peak),
            "items_per_call": mix["batch"] * (int(p["frames_length"]) - 1),
-           "batch": mix["batch"], "model": p, "profiled_calls": profiled_calls}
+           "batch": mix["batch"], "model": p, "mix": mix,
+           "itemsize": dtype.itemsize,
+           "profiled_calls": min(profiled_calls, attempted)}
     if ctx.trace:
         rec["spans_ms"] = {k: v[profiled_calls:] for k, v in spans.ms().items()}
-        rec["launches"] = launches.shapes
         if prof is not None:
             trace_path = harness.OUT / f"trace_{ctx.cell}.json"
             prof.export(trace_path)

@@ -147,12 +147,10 @@ def run(ctx) -> dict:
     after = {k: v.detach().clone() for k, v in pipe.core.named_parameters()}
     hooks.remove()
 
-    spans = launches = None
+    spans = None
     if ctx.trace:
         spans = harness.Spans()
         spans.wrap(pipe, "encode_first_stage", "frozen_encode")
-        launches = harness.Launches("mage_tpu_torch")
-        launches.patch_kernels()
     done = mix["check_steps"]
     for _ in range(mix["warmup_steps"]):
         call(done)
@@ -178,7 +176,6 @@ def run(ctx) -> dict:
     while time.perf_counter() - t_start < ctx.seconds:
         if prof is not None and attempted == 0:
             prof.start()
-            launches.on = True
         try:
             terms = call(done + attempted)
             finite.append(torch.isfinite(terms["final_loss"]))  # read after the window
@@ -188,14 +185,12 @@ def run(ctx) -> dict:
         attempted += 1
         if prof is not None and attempted == profiled:
             prof.stop()
-            launches.on = False
             t_steady = time.perf_counter()
     sync()
     window_s = time.perf_counter() - t_start
     steady_s = time.perf_counter() - t_steady
     if prof is not None and attempted < profiled:
         prof.stop()
-        launches.on = False
     harness.restore_host(threads)
     peak = torch.cuda.max_memory_allocated() if cuda else 0
     completed = int(torch.stack(finite).sum()) if finite else 0
@@ -204,11 +199,11 @@ def run(ctx) -> dict:
     rec = {"kind": "train", "window_s": window_s, "attempted": attempted, "failed": failed,
            "completed": completed, "setup_s": setup_s, "peak_bytes": peak,
            "process_peak_bytes": max(peak, setup_peak), "batch": mix["batch"], "model": p,
-           "profiled_steps": profiled, "steady_s": steady_s,
+           "mix": mix, "itemsize": 4,  # the pipeline's f32, in which the frozen encode runs
+           "profiled_steps": min(profiled, attempted), "steady_s": steady_s,
            "steady_steps": max(attempted - profiled, 0)}
     if ctx.trace:
         rec["spans_ms"] = {k: v[profiled:] for k, v in spans.ms().items()}
-        rec["launches"] = launches.shapes
         if prof is not None:
             trace_path = harness.OUT / f"trace_{ctx.cell}.json"
             prof.export(trace_path)
