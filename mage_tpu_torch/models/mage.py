@@ -11,8 +11,10 @@ K/V cache per temporal block and decodes one slot per step, which is exact
 for discrete ids. The continuous head's GroupNorm normalises over every slot
 of the buffer in ``generate``; in ``generate_cached`` its statistics
 accumulate causally over the slots generated so far (``head_causal``), as in
-the JAX package. The samplers always run in eval mode; the loss forward runs
-in the module's mode (dropout in train mode).
+the JAX package. On the card a greedy ``generate_cached`` replays the whole
+cached sampler as one CUDA graph for its shape (``models/graphs.py``). The
+samplers always run in eval mode; the loss forward runs in the module's mode
+(dropout in train mode).
 
 Parameter names are the reference state-dict keys (``generate_model.*``,
 ``text_encoder.*``, ``ma_encoder.*``, ``conv.0.weight`` and so on).
@@ -40,6 +42,7 @@ from mage_tpu_torch.models.layers import (
     TransformerTextEncoder,
     lecun_normal_,
 )
+from mage_tpu_torch.models import graphs
 from mage_tpu_torch.utils import trace
 
 
@@ -62,6 +65,11 @@ def standard_normal(noise: Optional[torch.Tensor], shape, like: torch.Tensor,
         gen_device = generator.device if generator is not None else like.device
         noise = torch.randn(shape, generator=generator, device=gen_device, dtype=like.dtype)
     return noise.to(device=like.device, dtype=like.dtype)
+
+
+def on_card(t: torch.Tensor) -> bool:
+    """A plain tensor on a CUDA device (not a sharded ``DTensor``)."""
+    return t.is_cuda and type(t) is torch.Tensor
 
 
 def _in_eval_mode(sampler):
@@ -559,20 +567,58 @@ class MAGECore(nn.Module):
         return torch.argmax(prediction, dim=-1).to(torch.int32)
 
     @torch.no_grad()
-    @_in_eval_mode
     def generate_cached(self, latents0: torch.Tensor, text: torch.Tensor,
                         speed: Optional[torch.Tensor] = None,
                         video_noise: Optional[torch.Tensor] = None,
                         generator: Optional[torch.Generator] = None,
-                        temperature: float = 0.0, top_k: int = 0) -> torch.Tensor:
+                        temperature: float = 0.0, top_k: int = 0,
+                        graph: bool = True) -> torch.Tensor:
         """KV-cached generation: one single-slot decoder pass per frame.
         ``temperature`` > 0 samples ids from softmax(logits / temperature),
         restricted to the ``top_k`` largest logits when 0 < top_k < K, with
         ``generator``; 0 is the exact greedy argmax. ``latents0``
         (B, 1, h, w[, c]) -> ids (B, L-1, h, w) or continuous latents
-        (B, L-1, h, w, c), whose head normalises with causal statistics."""
+        (B, L-1, h, w, c), whose head normalises with causal statistics.
+
+        A greedy call on the card by a core in eval mode (``graphable``)
+        runs the whole sampler, from the motion anchor to the stacked
+        frames, as one CUDA graph for its shape (``models/graphs.py``): the
+        first call of a shape runs the eager loop, the second captures it,
+        later ones replay it, bit-equal to the loop. The prior sample, when
+        not given, is drawn before the replay as the loop draws it.
+        ``graph=False`` runs the eager loop."""
         if temperature > 0 and not self.use_cids:
             raise ValueError("temperature sampling only applies to the discrete head")
+        if not (graph and temperature == 0 and self.graphable(latents0)):
+            return self._cached_loop(latents0, text, speed, video_noise, generator,
+                                     temperature, top_k)
+        if not self.randomness:
+            video_noise = None
+        elif video_noise is None:  # the loop's draw: the embedding's dtype and device
+            video_noise = standard_normal(None, (latents0.shape[0], *latents0.shape[2:4], 64),
+                                          self.visual_token_embedding.weight, generator)
+        dec = self.generate_model
+        route = tuple(block.spatial_attn for block in dec.blocks)
+        return graphs.call(self, self._cached_loop, (latents0, text, speed, video_noise),
+                           route)
+
+    def graphable(self, latents0: torch.Tensor) -> bool:
+        """Whether ``generate_cached`` replays a CUDA graph for this call:
+        ``latents0`` on the card, the core in eval mode, the port's own
+        decoder over an unquantized cache (the quantized attention makes a
+        host-to-device copy a slot) and the port's own text and motion-anchor
+        encoders (a config-chosen class from elsewhere may read the device
+        from the host). The rest runs the eager loop."""
+        dec = self.generate_model
+        return (on_card(latents0) and not self.training
+                and isinstance(dec, FlatAxialDecoder) and dec.kv_quant is None
+                and all(type(m).__module__.startswith("mage_tpu_torch.")
+                        for m in (self.text_encoder, self.ma_encoder)))
+
+    @_in_eval_mode
+    def _cached_loop(self, latents0, text, speed=None, video_noise=None, generator=None,
+                     temperature=0.0, top_k=0) -> torch.Tensor:
+        """The cached sampler's eager loop (``generate_cached``)."""
         x_emb0, anchor = self._prepare_generation(latents0, text, speed, video_noise,
                                                   generator)
         b, _, h, w, c = x_emb0.shape

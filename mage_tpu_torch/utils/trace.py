@@ -35,8 +35,10 @@ The spans of the main paths:
   ``mage.encode`` (the first-frame encode), ``mage.inputs`` (the uploads of
   the caption, speed and prior noise), ``mage.ar_core`` (the AR core,
   cached or naive), one ``mage.slot`` per ``decode_slot`` of the cached
-  sampler (attribute ``pos``; the anchor is slot 0) and ``mage.decode``
-  (the frame decode).
+  sampler's eager loop (attribute ``pos``; the anchor is slot 0; a call
+  that replays the sampler's CUDA graph opens none, and its replayed
+  launches count in ``mage.ar_core``) and ``mage.decode`` (the frame
+  decode).
 - ``mage.train_step`` (root, timed): one step of ``make_mage_train_step``; under it
   ``mage.cast`` (the compute-dtype copies of the masters), ``mage.forward``
   (the loss terms and the loss, with the frozen ``mage.encode`` inside),
@@ -148,13 +150,15 @@ def recording() -> Iterator[None]:
         _forced -= 1
 
 
-def count_launch(kernel: str, host_ns: int) -> None:
-    """One launch of ``kernel`` whose launcher took ``host_ns`` of host time,
-    added to this thread's innermost open span (none open: not counted)."""
+def count_launch(kernel: str, host_ns: int, launches: int = 1) -> None:
+    """``launches`` launches of ``kernel`` whose launchers took ``host_ns``
+    of host time in all, added to this thread's innermost open span (none
+    open: not counted). A CUDA graph's replay adds the launches it
+    captured with no host time."""
     stack = _stack()
     if stack:
         top = stack[-1]
-        top.launches[kernel] = top.launches.get(kernel, 0) + 1
+        top.launches[kernel] = top.launches.get(kernel, 0) + launches
         top.launch_ns += host_ns
 
 
