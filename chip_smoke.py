@@ -11,11 +11,16 @@ fatal on failure (exit code 1; 2 when there is no GPU or no package):
    version and, where one exists, a single PyTorch library call (the
    GroupNorm statistics kernel that feeds gn_conv has a row of its own; the
    VQ decode's fused tail, which replaces no TPU kernel, is timed at a MAGE
-   generate's 288 decoded frames beside the cuDNN layer chain it replaces);
+   generate's 288 decoded frames beside the cuDNN layer chain it replaces;
+   QuickGELU, which replaces none either, is held bit-equal to the
+   three-kernel chain forward and to its f32 formula backward at the AR
+   core's MLP hidden and at the training hidden, and timed at both beside
+   the chain and autograd's backward of it);
 4. the MAGE path: ``MagePipeline.generate`` for ``config/mage_caterv1.yaml``
    at full width, 16 frames, batch 32, bf16, random weights from a seed,
-   with the kernels' launch counts read around one call (the fused decode
-   tail once per decode chunk: once here, in the fused-block, kv-quant,
+   with the kernels' launch counts read around one call (QuickGELU once an
+   MLP: 6 decoder blocks a frame and the MA encoder's, 97 at 16 frames; the
+   fused decode tail once per decode chunk: once here, in the fused-block, kv-quant,
    BERT-head and profiled generates; the f32 first stages of the CLI, e2e,
    evals, probes and diagnostics phases and the MAGE+ path launch it 0
    times);
@@ -32,8 +37,10 @@ fatal on failure (exit code 1; 2 when there is no GPU or no package):
    16 frames, bf16 over f32 masters, one warm-up and 3 timed steps of
    ``make_mage_train_step`` (s/step by CUDA events, the stage split, peak
    memory with remat off and on, the losses, one vq launch a step on its
-   SIMT variant); one eval step on each spatial route (4 axial, then 4
-   fused-block launches); the kernels at the training shapes; MAGE+
+   SIMT variant, 7 QuickGELU forward and 7 backward launches a step); one
+   eval step on each spatial route (4 axial and 7 QuickGELU, then 4
+   fused-block and 3 QuickGELU launches); the kernels at the training
+   shapes; MAGE+
    (``config/mage+_caterv2.yaml``, auto-beta) for 3 steps with beta in
    [0, 1]; and one f32 train step and one eval-mode loss at batch 2 on the
    GPU (kernels) against the CPU (plain versions): loss terms within 1e-4
@@ -173,6 +180,12 @@ TRAIN_BATCH, TRAIN_STEPS = 16, 3
 TRAIN_LR, TRAIN_BETA, TRAIN_ALPHA = 5e-5, 0.00025, 0.001
 TRAIN_VQ_N = TRAIN_BATCH * FRAMES * 16 * 16  # tokens of one step's frozen encode
 TRAIN_G = TRAIN_BATCH * FRAMES * 16  # groups of an eval step's spatial block
+# QuickGELU: the cached sampler's MLP hidden (one slot of 32 x 256 tokens, 4 x
+# 512 wide) and mage_train_b16's (16 x 10 frames x 256 tokens); MLP calls of
+# a generate (6 decoder blocks a slot, the MA encoder's one) and of a train step
+QG_ROWS, QG_COLS = BATCH * 16 * 16, 4 * AX_D
+QG_TRAIN_ROWS = TRAIN_BATCH * L_GEN * 16 * 16
+DEC_BLOCKS, MA_BLOCKS = 6, 1
 TERM_RTOL, GRAD_TOL = 1e-4, 1e-3  # the f32 GPU-vs-CPU training check
 # stage-1 training: train_vqvae.py's batch and Adam, f32; each VQ-VAE is the
 # first stage of its config: name -> (config, frame size, channels)
@@ -579,6 +592,66 @@ def check_vq_tail(torch, F, vt, gen) -> dict:
             "max_abs_err": err, "bound_by": by, **row}
 
 
+def check_quick_gelu(torch, qg, gen) -> tuple:
+    """QuickGELU at the AR core's MLP hidden (batch 32 x 256 tokens, 4 x 512
+    channels) in bf16 and f32: the forward bit-equal to the three-kernel
+    chain (``quick_gelu_plain``) and timed beside it and its byte bound as
+    CUDA-graph replays (the kernel is shorter than its launcher's host
+    work); the backward bit-equal to its f32 formula
+    (``quick_gelu_grad_plain``). At ``mage_train_b16``'s hidden (40960 rows),
+    bf16: both kernels bit-equal to the same plain versions on the same
+    inputs, and timed beside autograd's chain (its forward and the
+    backward's five kernels) by CUDA events. Returns the main row
+    and, for the training shapes, (forward + backward ms, bound ms)."""
+    def bits_equal(a, b):
+        return torch.equal(a.view(torch.int16 if a.dtype == torch.bfloat16 else torch.int32),
+                           b.view(torch.int16 if b.dtype == torch.bfloat16 else torch.int32))
+
+    row = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        x = (torch.randn(QG_ROWS, QG_COLS, generator=gen, device="cuda") * 3).to(dtype)
+        g = torch.randn(QG_ROWS, QG_COLS, generator=gen, device="cuda").to(dtype)
+        if not bits_equal(qg.quick_gelu(x), qg.quick_gelu_plain(x)):
+            raise AssertionError(f"quick_gelu {dtype}: the forward is not bit-equal to the chain")
+        if not bits_equal(qg._backward_cuda(x, g), qg.quick_gelu_grad_plain(x, g)):
+            raise AssertionError(f"quick_gelu {dtype}: the backward is not bit-equal to its "
+                                 f"formula")
+        n = x.numel()
+        bnd, by = bound_ms(2 * n * x.element_size(), 6.0 * n)
+        line = {"ms": graph_ms(torch, lambda: qg.quick_gelu(x)),
+                "plain_ms": graph_ms(torch, lambda: qg.quick_gelu_plain(x)), "bound_ms": bnd,
+                "bwd_ms": graph_ms(torch, lambda: qg._backward_cuda(x, g)),
+                "bwd_bound_ms": bound_ms(3 * n * x.element_size(), 10.0 * n)[0]}
+        log(f"quick_gelu {str(dtype)[6:]} at {tuple(x.shape)} (graph replays): "
+            + json.dumps({**line, "bound_by": by, "mb": 2 * n * x.element_size() / 1e6}))
+        if dtype == torch.bfloat16:
+            row = {"name": "quick_gelu", "route": "cuda",
+                   "source": "mage_tpu_torch/csrc/quick_gelu.cu", "replaces": None,
+                   "max_abs_err": 0.0, "ms": line["ms"], "plain_ms": line["plain_ms"],
+                   "bound_ms": bnd, "bound_by": by, "library_ms": None}
+        del x, g
+    x = torch.randn(QG_TRAIN_ROWS, QG_COLS, generator=gen, device="cuda").to(torch.bfloat16)
+    g = torch.randn(QG_TRAIN_ROWS, QG_COLS, generator=gen, device="cuda").to(torch.bfloat16)
+    if not bits_equal(qg.quick_gelu(x), qg.quick_gelu_plain(x)):
+        raise AssertionError("quick_gelu at the training hidden: the forward is not bit-equal "
+                             "to the chain")
+    if not bits_equal(qg._backward_cuda(x, g), qg.quick_gelu_grad_plain(x, g)):
+        raise AssertionError("quick_gelu at the training hidden: the backward is not "
+                             "bit-equal to its formula")
+    xr = x.clone().requires_grad_()
+    y = qg.quick_gelu_plain(xr)
+    n = x.numel()
+    train = {"fwd_ms": time_ms(lambda: qg.quick_gelu(x)),
+             "fwd_chain_ms": time_ms(lambda: qg.quick_gelu_plain(xr)),
+             "bwd_ms": time_ms(lambda: qg._backward_cuda(x, g)),
+             "bwd_chain_ms": time_ms(lambda: torch.autograd.grad(y, xr, g, retain_graph=True)),
+             "fwd_bound_ms": bound_ms(2 * n * 2, 6.0 * n)[0],
+             "bwd_bound_ms": bound_ms(3 * n * 2, 10.0 * n)[0]}
+    log(f"quick_gelu bf16 at the training hidden {tuple(x.shape)} (CUDA events): "
+        + json.dumps(train))
+    return row, (train["fwd_ms"] + train["bwd_ms"], train["fwd_bound_ms"] + train["bwd_bound_ms"])
+
+
 def block_weights(torch, tl, gen, dtype):
     """An H/W-axis block at full width on the card (axial_dim 3, so a
     (1, 1, G, S, D) view is the flat (G, S, D) layout), with normal(0.02)
@@ -862,6 +935,20 @@ def expect(launches: dict, want: dict, what: str) -> None:
         raise AssertionError(f"{what}: launch counts {launches}, expected {full}")
 
 
+def mlp_launches(steps: int = 0, forwards: int = 0, cached=(), naive=()) -> dict:
+    """QuickGELU's launches in a full-width MAGE or MAGE+ core, whose 6
+    decoder blocks and 1 motion-anchor block each have one MLP: a train
+    step runs every MLP once forward and once backward, a teacher-forced
+    forward once; a cached generate of L frames (``cached``: each call's L)
+    runs the decoder's MLPs once a slot and the anchor's once, a naive one
+    (``naive``) the decoder's once a generated frame and the anchor's once."""
+    mlps = DEC_BLOCKS + MA_BLOCKS
+    return {"quick_gelu": mlps * (steps + forwards)
+            + sum(DEC_BLOCKS * n + MA_BLOCKS for n in cached)
+            + sum(DEC_BLOCKS * (n - 1) + MA_BLOCKS for n in naive),
+            "quick_gelu_bwd": mlps * steps}
+
+
 def spatial_blocks(pipe) -> int:
     """The decoder's H and W blocks (every block but each third): 4 of 6."""
     return sum(1 for i in range(len(pipe.core.generate_model.blocks)) if i % 3)
@@ -981,7 +1068,8 @@ def run_training(torch, build_pipeline, kernels, card: str) -> tuple:
     terms, launches, routes = count_launches(torch, kernels, timed_steps)
     s_per_step = start.elapsed_time(end) / TRAIN_STEPS / 1e3
     log(f"MAGE train: launches in {TRAIN_STEPS} steps {launches}, vq variants {routes}")
-    expect(launches, {"vq_nearest": TRAIN_STEPS}, "MAGE train steps")
+    gelu = mlp_launches(steps=TRAIN_STEPS)
+    expect(launches, {"vq_nearest": TRAIN_STEPS, **gelu}, "MAGE train steps")
     if routes != {"simt": TRAIN_STEPS, "wgmma": 0}:
         raise AssertionError("the f32 frozen encode's vq launch did not take the SIMT variant")
     # the same steps on latents encoded once before them, as the e2e chains
@@ -991,7 +1079,7 @@ def run_training(torch, build_pipeline, kernels, card: str) -> tuple:
     step(lat_batch, *args, generator=gen)  # warm-up
     _, lat_launches, _ = count_launches(torch, kernels, lambda: timed_steps(lat_batch))
     s_per_step_latents = start.elapsed_time(end) / TRAIN_STEPS / 1e3
-    expect(lat_launches, {}, "MAGE train steps on precomputed latents")
+    expect(lat_launches, gelu, "MAGE train steps on precomputed latents")
     loss_after = float(terms["final_loss"])
     if not (math.isfinite(loss_warm) and math.isfinite(loss_after)):
         raise AssertionError(f"non-finite training loss: {loss_warm}, {loss_after}")
@@ -1024,7 +1112,9 @@ def run_training(torch, build_pipeline, kernels, card: str) -> tuple:
         op = "axial_block_fused" if route == "fusedblock" else "axial_slot_attention"
         log(f"MAGE eval step ({route}): launches {counts}, final loss "
             f"{float(terms['final_loss'])}")
-        expect(counts, {"vq_nearest": 1, op: spatial_blocks(pipe_r)}, f"MAGE eval step ({route})")
+        mlps = MA_BLOCKS + DEC_BLOCKS - (spatial_blocks(pipe_r) if route == "fusedblock" else 0)
+        expect(counts, {"vq_nearest": 1, op: spatial_blocks(pipe_r), "quick_gelu": mlps},
+               f"MAGE eval step ({route})")
         if not math.isfinite(float(terms["final_loss"])):
             raise AssertionError(f"non-finite eval loss ({route})")
         evals[route] = counts
@@ -1078,7 +1168,7 @@ def run_magep_training(torch, build_pipeline, kernels, batch_size: int) -> dict:
     seconds = (time.perf_counter() - start) / TRAIN_STEPS
     log(f"MAGE+ train (batch {batch_size}): launches in {TRAIN_STEPS} steps {launches}, "
         f"{seconds} s/step (host clock, each step read back)")
-    expect(launches, {}, "MAGE+ train steps")
+    expect(launches, mlp_launches(steps=TRAIN_STEPS), "MAGE+ train steps")
     return {"batch": batch_size, "s_per_step_host": seconds, "steps": state["log"]}
 
 
@@ -1192,9 +1282,10 @@ def run_train_reference_check(torch, np, build_pipeline, kernels) -> None:
         if device == "cuda":
             log(f"f32 training check on the GPU ({run}): launches in the train step "
                 f"{train_launches}, in the eval-mode loss {eval_launches}")
-            expect(train_launches, {"vq_nearest": 1}, "f32 train step")
-            expect(eval_launches, {"vq_nearest": 1, "axial_slot_attention": spatial_blocks(pipe)},
-                   "f32 eval-mode loss")
+            expect(train_launches, {"vq_nearest": 1, **mlp_launches(steps=1)},
+                   "f32 train step")
+            expect(eval_launches, {"vq_nearest": 1, "axial_slot_attention": spatial_blocks(pipe),
+                                   **mlp_launches(steps=1)}, "f32 eval-mode loss")
         outs[run] = {"train": train, "eval": evals}
         if device == "cpu":  # f64 runs of both losses, to read every run against
             ids = pipe.encode_first_stage(batch["images"])
@@ -1824,9 +1915,10 @@ def run_cli_phase(torch, np, kernels, card: str) -> dict:
             torch, kernels, probe, "main_mage train (MAGE)",
             lambda: main_mage.main(["--config", mage_cfg, "--split", "train",
                                     "--checkpoint-path", ckpt, "--device", "cuda"]),
-            {"vq_nearest": CLI_STEPS + 1, "axial_slot_attention": 4}, CLI_STEPS, card)
+            {"vq_nearest": CLI_STEPS + 1, "axial_slot_attention": 4,
+             **mlp_launches(steps=CLI_STEPS, forwards=1)}, CLI_STEPS, card)
         generate = {"vq_nearest": 1, "axial_slot_attention": 4 * FRAMES,
-                    "cached_slot_attention": 2 * FRAMES}
+                    "cached_slot_attention": 2 * FRAMES, **mlp_launches(cached=[FRAMES])}
         sample = ["--split", "test", "--test_model", os.path.join(ckpt, "model_best"),
                   "--max-test-items", "2", "--sample-batch-size", "2", "--device", "cuda"]
         torch.backends.cudnn.allow_tf32 = False  # the f32 sample is held to the CPU's ids
@@ -1869,7 +1961,8 @@ def run_cli_phase(torch, np, kernels, card: str) -> dict:
             torch, kernels, probe, "main_mage train (MAGE+)",
             lambda: main_mage.main(["--config", magep_cfg, "--split", "train",
                                     "--checkpoint-path", ckpt, "--device", "cuda"]),
-            {"axial_slot_attention": 4}, CLI_STEPS, card)
+            {"axial_slot_attention": 4, **mlp_launches(steps=CLI_STEPS, forwards=1)},
+            CLI_STEPS, card)
         # the naive sampler (MAGE+'s default): 4 spatial blocks per step over
         # 15 steps, then one decode chunk of the 15 generated frames
         done, lines["main_mage test (MAGE+)"] = cli_run(
@@ -1878,7 +1971,7 @@ def run_cli_phase(torch, np, kernels, card: str) -> dict:
                                     os.path.join(ckpt, "model_best"), "--max-test-items",
                                     "1", "--device", "cuda"]),
             {"axial_slot_attention": 4 * (FRAMES - 1), "gn_silu_conv3x3": chains,
-             "gn_stats": chains}, 1, card)
+             "gn_stats": chains, **mlp_launches(naive=[FRAMES])}, 1, card)
         if not (done == 1 and torch.isfinite(probe.videos[0]).all()):
             raise AssertionError("cli sample (MAGE+): frames not finite")
         gifs += len(os.listdir(os.path.join(ckpt, "videos")))
@@ -1935,7 +2028,8 @@ def run_kvquant_phase(torch, np, build_pipeline, kernels, card: str) -> dict:
             torch, kernels, lambda: pipe.generate(batch, generator=gen.manual_seed(1),
                                                   cached=True))
         want = {"vq_nearest": 1, "axial_slot_attention": 4 * FRAMES,
-                "cached_slot_attention": 0 if kv else 2 * FRAMES, "vq_decode_tail": 1}
+                "cached_slot_attention": 0 if kv else 2 * FRAMES, "vq_decode_tail": 1,
+                **mlp_launches(cached=[FRAMES])}
         expect(launches, want, f"generate with kv_quant={kv}")
         torch.cuda.reset_peak_memory_stats()
         times = []
@@ -2127,6 +2221,7 @@ class E2eProbe(Patches):
     def __enter__(self) -> "E2eProbe":
         from mage_tpu_torch.cli import train_fvd_extractor
         from mage_tpu_torch.models import autoencoder_kl, layers
+        from mage_tpu_torch.ops import quick_gelu as qg
         from mage_tpu_torch.ops import vq, vq_tail
         from mage_tpu_torch.training import autoencoder_kl_trainer, e2e, vqvae_trainer
 
@@ -2185,6 +2280,21 @@ class E2eProbe(Patches):
                 return out
             return fn
 
+        def gelu(old):
+            def fn(x):
+                out = old(x)
+                if x.is_cuda:
+                    probe._keep(("quick_gelu", tuple(x.shape), x.dtype), (x,), (out,))
+                return out
+            return fn
+
+        def gelu_bwd(old):  # run by autograd's backward of ``qg._QuickGelu``
+            def fn(x, g):
+                dx = old(x, g)
+                probe._keep(("quick_gelu_bwd", tuple(x.shape), x.dtype), (x, g), (dx,))
+                return dx
+            return fn
+
         def timed_factory(stage):
             def wrap(old):
                 def factory(*args, **kwargs):
@@ -2225,6 +2335,8 @@ class E2eProbe(Patches):
         self._patch(layers, "axial_slot_attention", axial)
         self._patch(layers, "cached_slot_attention", cached)
         self._patch(vq_tail, "vq_decode_tail", tail)
+        self._patch(layers, "quick_gelu", gelu)
+        self._patch(qg, "_backward_cuda", gelu_bwd)
         return self
 
     def hold(self) -> dict:
@@ -2236,11 +2348,13 @@ class E2eProbe(Patches):
         gn_stats within 1e-5 relative of ``gn_affine_rows`` and gn_conv on
         those rows within ``F32_TOL`` of its largest output in f32, one
         rounding step plus ``GN_BF16_ATOL`` in bf16 (as ``check_gn_conv``);
-        the VQ decode's fused tail within one bf16 rounding step.
+        the VQ decode's fused tail within one bf16 rounding step; QuickGELU's
+        forward bit-equal to the chain and its backward to its f32 formula.
         -> {kernel: {"shapes": n, "max_abs_err": e}}; raises on any miss."""
         from mage_tpu_torch.ops import axial_attention as ax
         from mage_tpu_torch.ops import cached_attention as ca
         from mage_tpu_torch.ops import gn_conv as gc
+        from mage_tpu_torch.ops import quick_gelu as qg
         from mage_tpu_torch.ops import vq
         from mage_tpu_torch.ops import vq_tail as vt
 
@@ -2279,6 +2393,15 @@ class E2eProbe(Patches):
                         *inputs, got = held
                         want = vt.vq_decode_tail(*inputs, impl="torch")
                         note(name, key, close(got, want, key))
+                    elif name in ("quick_gelu", "quick_gelu_bwd"):
+                        *inputs, got = held
+                        want = (qg.quick_gelu_plain(*inputs) if name == "quick_gelu"
+                                else qg.quick_gelu_grad_plain(*inputs))
+                        bits = torch.int16 if got.dtype == torch.bfloat16 else torch.int32
+                        if not torch.equal(got.view(bits), want.view(bits)):
+                            raise AssertionError(f"e2e {key}: not bit-equal to the plain "
+                                                 f"version")
+                        note(name, key, 0.0)
                     elif name == "vq_nearest":
                         z, cb, idx, codes = held
                         ref_idx, ref_codes = vq._vq_plain(z, cb)
@@ -2359,8 +2482,8 @@ def e2e_chains(kl_chains: dict) -> list:
     kernel (train mode) and the eval step 4 axial; a cached generate of L
     frames launches 4L axial and 2L cached, a naive one 4(L-1) axial; a
     KL-AE decode launches gn_conv and gn_stats once per decoder chain
-    (``kl_chains``) per call of at most 96 frames. MNIST chains have L=16,
-    CATER chains L=10."""
+    (``kl_chains``) per call of at most 96 frames; QuickGELU as
+    ``mlp_launches`` counts it. MNIST chains have L=16, CATER chains L=10."""
     from mage_tpu_torch.cli import (train_cater_e2e, train_cater_kl_e2e, train_mnist2_e2e,
                                     train_mnist_e2e, train_mnist_kl_e2e)
 
@@ -2368,21 +2491,24 @@ def e2e_chains(kl_chains: dict) -> list:
         return -(-a // b)
 
     vq_mnist = 4 + 2 + cdiv(64, 50) + cdiv(16, 50)
+    train = {"steps": 4, "forwards": 1}  # stage 2: 4 train steps, one eval step
     mnist = {"vq_nearest": vq_mnist, "axial_slot_attention": 4 + 2 * 64,
-             "cached_slot_attention": 2 * 32}
+             "cached_slot_attention": 2 * 32, **mlp_launches(**train, cached=[16] * 2)}
     c = kl_chains["f4"]
     decode = c * cdiv(8 * 15, 96)  # 8 videos x 15 generated frames
     mnist_kl = {"axial_slot_attention": 4 + 64 + 60 + 2 * 64,
                 "cached_slot_attention": 32 + 2 * 32,
-                "gn_silu_conv3x3": 2 * c + 4 * decode + c * cdiv(8 * 16, 96)}
+                "gn_silu_conv3x3": 2 * c + 4 * decode + c * cdiv(8 * 16, 96),
+                **mlp_launches(**train, cached=[16] * 3, naive=[16])}
     mnist_kl["gn_stats"] = mnist_kl["gn_silu_conv3x3"]
     cater = {"vq_nearest": 4 + 3 + cdiv(16, 5) + cdiv(8, 5), "axial_slot_attention": 4 + 40,
-             "cached_slot_attention": 20}
+             "cached_slot_attention": 20, **mlp_launches(**train, cached=[10])}
     c = kl_chains["f8"]
     decode = c * cdiv(8 * 9, 96)
     cater_kl = {"axial_slot_attention": 4 + 40 + 36 + 2 * 40,
                 "cached_slot_attention": 20 + 2 * 20,
-                "gn_silu_conv3x3": 2 * c + 4 * decode + c * cdiv(8 * 10, 96)}
+                "gn_silu_conv3x3": 2 * c + 4 * decode + c * cdiv(8 * 10, 96),
+                **mlp_launches(**train, cached=[10] * 3, naive=[10])}
     cater_kl["gn_stats"] = cater_kl["gn_silu_conv3x3"]
     mnist_clips = ["--num-train", "64", "--num-val", "16"]
     return [
@@ -2508,7 +2634,8 @@ def evals_steps(tmp: str) -> list:
 
     mnist_run = os.path.join(tmp, "train_mnist_e2e")
     mnist_data = ["--num-train", "64", "--num-val", "16"]  # the chain's clips
-    generate = {"axial_slot_attention": 4 * 16, "cached_slot_attention": 2 * 16}
+    generate = {"axial_slot_attention": 4 * 16, "cached_slot_attention": 2 * 16,
+                **mlp_launches(cached=[16])}
     return [
         ("train_fvd_extractor caterv2", train_fvd_extractor.main,
          ["--dataset", "caterv2", "--out", os.path.join(tmp, "fvdx_cater")] + EXTRACTOR_CUTS,
@@ -2526,7 +2653,8 @@ def evals_steps(tmp: str) -> list:
         ("eval_speed_control_cater", eval_speed_control_cater.main,
          ["--run", os.path.join(tmp, "train_cater_e2e"), "--dataset", "caterv1",
           "--num-train", "16", "--num-val", "8", "--gifs", "1", "--device", "cuda"],
-         {"vq_nearest": 1, "axial_slot_attention": 4 * 10, "cached_slot_attention": 2 * 10}),
+         {"vq_nearest": 1, "axial_slot_attention": 4 * 10, "cached_slot_attention": 2 * 10,
+          **mlp_launches(cached=[10])}),
     ]
 
 
@@ -2625,9 +2753,9 @@ def probe_steps(tmp: str) -> list:
 
     single, double = (os.path.join(tmp, name) for name in PROBE_RUNS)
     data = ["--num-train", "64", "--num-val", "16", "--device", "cuda"]  # the chains'
-    forward = {"vq_nearest": 1, "axial_slot_attention": 3 * 4}
+    forward = {"vq_nearest": 1, "axial_slot_attention": 3 * 4, **mlp_launches(forwards=3)}
     generate = {"vq_nearest": 1, "axial_slot_attention": 4 * 16,
-                "cached_slot_attention": 2 * 16}
+                "cached_slot_attention": 2 * 16, **mlp_launches(cached=[16])}
     return [
         ("probe_text_sensitivity single", probe_text_sensitivity.main,
          ["--dataset", "single", "--run", single, "--videos", "16"] + data, forward),
@@ -2714,7 +2842,8 @@ def diag_steps(tmp: str) -> list:
 
     def generate(forwards: int) -> dict:  # teacher-forced forwards + one cached generate
         return {"axial_slot_attention": 4 * forwards + 4 * length,
-                "cached_slot_attention": 2 * length}
+                "cached_slot_attention": 2 * length,
+                **mlp_launches(forwards=forwards, cached=[length])}
 
     kl_data = ["--num-train", "16", "--num-val", "8", "--device", "cuda"]  # the chain's
     mnist2_chunks = -(-(16 * 16) // eval_mnist2_ceiling.ENCODE_CHUNK)
@@ -2802,7 +2931,8 @@ BERT_BASE = {"vocab_size": 30522, "hidden_size": 768, "num_hidden_layers": 12,
              "num_attention_heads": 12, "intermediate_size": 3072,
              "max_position_embeddings": 512, "type_vocab_size": 2}
 MAIN_PATH_LAUNCHES = {"vq_nearest": 1, "axial_slot_attention": 4 * FRAMES,
-                      "cached_slot_attention": 2 * FRAMES, "vq_decode_tail": 1}
+                      "cached_slot_attention": 2 * FRAMES, "vq_decode_tail": 1,
+                      **mlp_launches(cached=[FRAMES])}
 SPECTRAL_WIDTH, SPECTRAL_RTOL = 128, 1e-4
 
 
@@ -3054,7 +3184,8 @@ def run_parallel_check(torch, np, build_pipeline, kernels, card: str) -> dict:
                         pipe.alpha, generator=gen))
                     end.record()
                     torch.cuda.synchronize()
-                    expect(launches, {"vq_nearest": 1}, f"{label} train step")
+                    expect(launches, {"vq_nearest": 1, **mlp_launches(steps=1)},
+                           f"{label} train step")
                     steps.append({k: float(v) for k, v in terms.items()})
                     times.append(start.elapsed_time(end) / 1e3)
                 trainer.sync_module()
@@ -3113,6 +3244,7 @@ def main() -> int:
         from mage_tpu_torch.ops import axial_attention as ax
         from mage_tpu_torch.ops import cached_attention as ca
         from mage_tpu_torch.ops import gn_conv as gc
+        from mage_tpu_torch.ops import quick_gelu as qg
         from mage_tpu_torch.ops import vq
         from mage_tpu_torch.ops import vq_tail as vt
     except ImportError as e:
@@ -3139,14 +3271,18 @@ def main() -> int:
                 check_cached(torch, F, ca, gen), check_gn_conv(torch, F, gc, gen),
                 check_gn_stats(torch, gc, gen), check_axial_block(torch, ax, tl, gen),
                 check_vq_tail(torch, F, vt, gen)]
+        gelu_row, gelu_train = check_quick_gelu(torch, qg, gen)
+        rows.append(gelu_row)
         kernels = {"vq_nearest": vq.KERNEL, "axial_slot_attention": ax.KERNEL,
                    "cached_slot_attention": ca.KERNEL, "gn_silu_conv3x3": gc.KERNEL,
                    "gn_stats": gc.KERNEL_STATS, "axial_block_fused": ax.KERNEL_BLOCK,
-                   "vq_decode_tail": vt.KERNEL}
+                   "vq_decode_tail": vt.KERNEL, "quick_gelu": qg.KERNEL,
+                   "quick_gelu_bwd": qg.KERNEL_BWD}
+        mlps = mlp_launches(cached=[FRAMES])
         mage, mage_path = run_main_path(torch, np, build_pipeline, kernels, smi, want={
             "vq_nearest": 1, "axial_slot_attention": 4 * FRAMES,
             "cached_slot_attention": 2 * FRAMES, "gn_silu_conv3x3": 0, "gn_stats": 0,
-            "axial_block_fused": 0, "vq_decode_tail": 1})
+            "axial_block_fused": 0, "vq_decode_tail": 1, **mlps})
         run_reference_check(torch, np, build_pipeline)
         n_gn = sum(GN_CONV_SITES.values()) * (BATCH * (FRAMES - 1) // KL_CHUNK)
         magep, _ = run_main_path(torch, np, build_pipeline, kernels, smi,
@@ -3154,12 +3290,14 @@ def main() -> int:
                                      "vq_nearest": 0, "axial_slot_attention": 4 * FRAMES,
                                      "cached_slot_attention": 2 * FRAMES,
                                      "gn_silu_conv3x3": n_gn, "gn_stats": n_gn,
-                                     "axial_block_fused": 0})
+                                     "axial_block_fused": 0, **mlps})
         run_magep_reference_check(torch, np, build_pipeline)
+        # the fused blocks keep their own QuickGELU: the temporal blocks' MLPs remain
         fused, fused_path = run_main_path(torch, np, build_pipeline, kernels, smi, want={
             "vq_nearest": 1, "axial_slot_attention": 0,
             "cached_slot_attention": 2 * FRAMES, "gn_silu_conv3x3": 0, "gn_stats": 0,
-            "axial_block_fused": 4 * FRAMES, "vq_decode_tail": 1}, spatial_attn="fusedblock")
+            "axial_block_fused": 4 * FRAMES, "vq_decode_tail": 1,
+            "quick_gelu": DEC_BLOCKS // 3 * FRAMES + MA_BLOCKS}, spatial_attn="fusedblock")
         log("MAGE fusedblock beside flat: " + json.dumps({
             key: {"flat": mage_path[key], "fusedblock": fused_path[key]}
             for key in ("generated_frames_per_s", "generate_s", "peak_mem_gib", "stage_ms")}))
@@ -3176,6 +3314,7 @@ def main() -> int:
         # training, on torch's default precision flags (cuDNN may use TF32 for
         # the f32 frozen encode), as a trainer gets them; f32 checks without
         train_shapes = check_train_shapes(torch, vq, ax, tl, gen)
+        train_shapes["quick_gelu"] = gelu_train
         torch.backends.cudnn.allow_tf32 = True
         t0 = time.perf_counter()
         per_train_step, per_eval_step, _ = run_training(torch, build_pipeline, kernels, smi)
@@ -3211,8 +3350,8 @@ def main() -> int:
             row["bert_launches"] = bert["launches"].get(row["name"], 0)
             for key, phase in (("e2e", e2e_lines), ("evals", evals_lines),
                                ("probes", probe_lines), ("diags", diag_lines)):
-                row[f"{key}_launches"] = sum(line["launches"].get(row["name"], 0)
-                                             for line in phase.values())
+                row[f"{key}_launches"] = sum(
+                    line["launches"].get(row["name"], 0) for line in phase.values())
                 errs = [line["held"][row["name"]]["max_abs_err"] for line in phase.values()
                         if row["name"] in line["held"]]
                 row[f"{key}_max_abs_err"] = max(errs) if errs else None
@@ -3230,6 +3369,9 @@ def main() -> int:
             row["train_ms"], row["train_bound_ms"] = ms_bound or (None, None)
             if row["name"] == "vq_nearest":
                 row["train_launches"] = per_train_step["vq_nearest"]
+            elif row["name"] == "quick_gelu":  # forward and backward launches
+                row["train_launches"] = (per_train_step["quick_gelu"]
+                                         + per_train_step["quick_gelu_bwd"])
             elif ms_bound is not None:
                 row["train_launches"] = per_eval_step[
                     "fusedblock" if row["name"] == "axial_block_fused" else "flat"][row["name"]]

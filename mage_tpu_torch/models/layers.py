@@ -37,6 +37,7 @@ from mage_tpu_torch.ops.cached_attention import (
     cached_slot_attention_quant,
     quantize_kv_slot,
 )
+from mage_tpu_torch.ops.quick_gelu import quick_gelu
 from mage_tpu_torch.parallel import tensor_parallel as tp
 
 NEG_INF = -1e9  # additive mask value, as in the JAX package
@@ -56,11 +57,6 @@ def lecun_normal_(p: torch.Tensor, generator: torch.Generator) -> None:
     b = math.erf(math.sqrt(2.0))  # erfinv maps U(-b, b) to normals cut at 2 sigma / sqrt 2
     u = torch.empty(p.shape).uniform_(-b, b, generator=generator)
     p.copy_(u.erfinv_().mul_(s * math.sqrt(2.0)).clamp_(-2 * s, 2 * s))
-
-
-def quick_gelu(x: torch.Tensor) -> torch.Tensor:
-    """x * sigmoid(1.702 x)."""
-    return x * torch.sigmoid(1.702 * x)
 
 
 class MultiHeadAttention(nn.Module):
@@ -119,7 +115,8 @@ class MultiHeadAttention(nn.Module):
 
 
 class MLP(nn.Module):
-    """d -> 4d -> d with QuickGELU."""
+    """d -> 4d -> d with QuickGELU (``ops.quick_gelu``: one kernel pass
+    forward and one backward on the card)."""
 
     def __init__(self, d_model: int):
         super().__init__()

@@ -12,7 +12,8 @@ dropped); and the launch record of a capture, credited once a replay.
 On the card (skipped without one; ``python3 -m pytest --noconftest -q
 tests/test_torch_port_graphs.py``), at the benchmark's shapes (batch 32,
 L=10, bf16) and a second batch: replays bit-equal to the eager loop for
-MAGE's ids and MAGE+'s latents, on both spatial routes; successive calls
+MAGE's ids and MAGE+'s latents, on both spatial routes, and to the eager
+loop with the plain QuickGELU chain in place of its kernel; successive calls
 keep their own outputs; an in-place reload moves the output as the eager
 loop's; the bytes allocated outside a replay grow by the static buffers
 only; the launch counts of a replayed call equal the eager loop's.
@@ -333,6 +334,27 @@ def test_replays_are_bit_equal_to_the_eager_loop(card_pipes, name, batch, route)
 
 
 @pytest.mark.parametrize("name", list(CONFIGS))
+def test_replays_are_bit_equal_to_the_eager_loop_on_the_plain_quick_gelu(card_pipes, name,
+                                                                         monkeypatch):
+    """The replay, whose MLPs run the QuickGELU kernel, against the eager loop
+    with the three-kernel chain in its place: the same ids and latents, as
+    the kernel's forward is bit-equal to the chain."""
+    from mage_tpu_torch.models import layers
+    from mage_tpu_torch.ops import quick_gelu as qg
+
+    pipe = card_pipes[name]
+    core = pipe.core
+    args = _card_inputs(pipe, CELL_B, seed=21)
+    outs = [core.generate_cached(*args[:3], video_noise=args[3]) for _ in range(3)]
+    monkeypatch.setattr(layers, "quick_gelu", qg.quick_gelu_plain)
+    launches = qg.KERNEL.launches
+    want = core.generate_cached(*args[:3], video_noise=args[3], graph=False)
+    assert qg.KERNEL.launches == launches  # the loop ran the chain
+    for out in outs:
+        assert torch.equal(out, want)
+
+
+@pytest.mark.parametrize("name", list(CONFIGS))
 def test_successive_calls_keep_their_own_outputs(card_pipes, name):
     pipe = card_pipes[name]
     core = pipe.core
@@ -400,15 +422,17 @@ def test_outside_a_replay_only_the_static_buffers_stay_allocated(card_pipes, nam
 def test_a_replayed_call_counts_the_eager_loops_launches(card_pipes):
     """Kernel counts and the spans' launch counts of one call: the eager
     loop's, the capturing call's (its capture counts none, its replay all)
-    and a replay's are the same (L=10: 40 axial, 20 cached)."""
+    and a replay's are the same (L=10: 40 axial, 20 cached, 61 QuickGELU:
+    six blocks a slot and the MA encoder's)."""
     from mage_tpu_torch.ops import axial_attention as ax
     from mage_tpu_torch.ops import cached_attention as ca
+    from mage_tpu_torch.ops import quick_gelu as qg
 
     pipe = card_pipes["mage"]
     core = pipe.core
     args = _card_inputs(pipe, 7, seed=7)
     for _ in range(3):  # eager, capture and replay, replay
-        before = ax.KERNEL.launches, ca.KERNEL.launches
+        before = ax.KERNEL.launches, ca.KERNEL.launches, qg.KERNEL.launches
         trace.clear()
         with trace.span("probe"):
             core.generate_cached(*args[:3], video_noise=args[3])
@@ -417,7 +441,8 @@ def test_a_replayed_call_counts_the_eager_loops_launches(card_pipes):
         for s in spans:
             for k, n in s["launches"].items():
                 totals[k] = totals.get(k, 0) + n
-        assert (ax.KERNEL.launches - before[0], ca.KERNEL.launches - before[1]) == (40, 20)
-        assert totals == {"axial": 40, "cached": 20}
+        assert (ax.KERNEL.launches - before[0], ca.KERNEL.launches - before[1],
+                qg.KERNEL.launches - before[2]) == (40, 20, 61)
+        assert totals == {"axial": 40, "cached": 20, "quick_gelu": 61}
     assert spans[-1]["name"] == "probe" and spans[-1]["launches"] == totals  # replayed
     trace.clear()
