@@ -1,7 +1,11 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``mage_tpu_torch``) on one GPU and check it.
 
-Run from the repository root with ``python3 chip_smoke.py``. Phases, each
+Run from the repository root with ``python3 chip_smoke.py``. It checks;
+the benchmark (``python -m benchmark.run``) measures the end-to-end paths.
+Launches are read from the port's one launch record
+(``utils.trace.launch_counts``, by launcher name: ``KERNELS``), the vq
+kernel's variants by wrapping ``ops.vq.route`` (``Routes``). Phases, each
 fatal on failure (exit code 1; 2 when there is no GPU or no package):
 
 1. the card's name and power limit, as ``nvidia-smi`` reports them;
@@ -18,7 +22,8 @@ fatal on failure (exit code 1; 2 when there is no GPU or no package):
    the chain and autograd's backward of it);
 4. the MAGE path: ``MagePipeline.generate`` for ``config/mage_caterv1.yaml``
    at full width, 16 frames, batch 32, bf16, random weights from a seed,
-   with the kernels' launch counts read around one call (QuickGELU once an
+   its output's shape and finiteness checked and the kernels' launch counts
+   read around one call (the vq launch on its wgmma variant; QuickGELU once an
    MLP: 6 decoder blocks a frame and the MA encoder's, 97 at 16 frames; the
    fused decode tail once per decode chunk: once here, in the fused-block, kv-quant,
    BERT-head and profiled generates; the f32 first stages of the CLI, e2e,
@@ -27,27 +32,25 @@ fatal on failure (exit code 1; 2 when there is no GPU or no package):
 5. a small f32 input through the same pipeline on the GPU and on the CPU
    (plain versions), which must agree;
 6. the MAGE+ path: the same for ``config/mage+_caterv2.yaml`` (KL-AE first
-   stage, continuous latents, cached sampler), and its f32 GPU-vs-CPU check;
+   stage, continuous latents, cached sampler; the generated latents neither
+   constant nor non-finite), and its f32 GPU-vs-CPU check;
 7. the fused whole-block spatial route (``spatial_attn="fusedblock"``): the
-   MAGE path again with its launch counts, frames/s and stage split beside
-   the flat route's, then f32 GPU-vs-CPU checks of MAGE (cached sampler) and
-   MAGE+ (both samplers);
+   MAGE path again with its launch counts, then f32 GPU-vs-CPU checks of
+   MAGE (cached sampler) and MAGE+ (both samplers);
 8. stage-2 training (``mage_tpu_torch.training``) at ``bench_train.py``'s
    defaults: MAGE from ``config/mage_caterv1.yaml`` at full width, batch 16,
-   16 frames, bf16 over f32 masters, one warm-up and 3 timed steps of
-   ``make_mage_train_step`` (s/step by CUDA events, the stage split, peak
-   memory with remat off and on, the losses, one vq launch a step on its
-   SIMT variant, 7 QuickGELU forward and 7 backward launches a step); one
-   eval step on each spatial route (4 axial and 7 QuickGELU, then 4
-   fused-block and 3 QuickGELU launches); the kernels at the training
-   shapes; MAGE+
+   16 frames, bf16 over f32 masters, one warm-up and 3 steps of
+   ``make_mage_train_step`` (finite losses, one vq launch a step on its
+   SIMT variant, 7 QuickGELU forward and 7 backward launches a step), the
+   same steps on precomputed latents (QuickGELU's launches only) and one
+   with remat on; one eval step on each spatial route (4 axial and 7
+   QuickGELU, then 4 fused-block and 3 QuickGELU launches); the kernels at
+   the training shapes; MAGE+
    (``config/mage+_caterv2.yaml``, auto-beta) for 3 steps with beta in
    [0, 1]; and one f32 train step and one eval-mode loss at batch 2 on the
    GPU (kernels) against the CPU (plain versions): loss terms within 1e-4
    relative, each gradient within 1e-3 of its tensor's largest |g| (both
-   also read against an f64 CPU run). The step's TFLOP per stage
-   (``torch.utils.flop_counter``) and its kernel time under
-   ``torch.profiler`` are printed beside the stage split;
+   also read against an f64 CPU run);
 9. stage-1 training (``vqvae_trainer``, ``autoencoder_kl_trainer``), f32:
    the vq kernel at the VQ-VAE steps' shapes (4096 tokens, 512 codes, width
    1024 and 256, with codes) against its plain version (ids equal) and its
@@ -123,8 +126,8 @@ fatal on failure (exit code 1; 2 when there is no GPU or no package):
     batch 2, the card's ids against the CPU's; one train step of a
     spectral-norm ``BasicBlock3D`` pyramid on the card against the CPU
     (``sigma``, ``u`` and the output within 1e-4 relative); ``profile_trace``
-    around one MAGE generate (the trace names the three kernels of the path;
-    the device's busy share of the span) and ``cost_analysis`` of one
+    around one MAGE generate (the trace names the three kernels of the path)
+    and ``cost_analysis`` of one
     ``decode_slot`` beside ``mage_decoder_flops``; ``MageTrainer`` on a
     1-rank NCCL mesh (replicated, then ``fsdp: true``), 3 f32 steps whose
     loss terms equal the plain trainer's within 1e-5 relative, batch-parallel
@@ -194,6 +197,13 @@ S1_VQ = {"f8": ("config/mage_caterv1.yaml", 128, 3), "f4": ("config/mage_mnist.y
 S1_VQ_SHAPES = {"f8": (S1_BATCH * 16 * 16, 512, 1024), "f4": (S1_BATCH * 16 * 16, 512, 256)}
 KL_BATCH, KL_LR, KL_WEIGHT = 8, 4.5e-6, 1e-6  # train_autoencoder_kl.py's defaults
 F32_SPREAD = 2.0  # a GPU gradient as close to f64 as the CPU's, up to this factor
+# the kernel table's rows -> the launcher (``_build.launcher``) whose name
+# counts each one's launches; ``KERNELS``: every launcher's name
+LAUNCHER = {"vq_nearest": "vq", "axial_slot_attention": "axial",
+            "cached_slot_attention": "cached", "gn_silu_conv3x3": "gn_conv",
+            "gn_stats": "gn_stats", "axial_block_fused": "axial_block",
+            "vq_decode_tail": "vq_tail", "quick_gelu": "quick_gelu"}
+KERNELS = (*LAUNCHER.values(), "quick_gelu_bwd")
 
 
 def log(msg: str) -> None:
@@ -264,13 +274,13 @@ def check_vq(torch, vq, gen) -> dict:
     for dtype in (torch.float32, torch.bfloat16):
         z = torch.relu(torch.randn(VQ_N, VQ_D, generator=gen, device="cuda")).to(dtype)
         cb = (torch.randn(VQ_K, VQ_D, generator=gen, device="cuda") * 0.5).to(dtype)
-        before = dict(vq.ROUTE_LAUNCHES)
-        idx, codes = vq.nearest_with_codes(z, cb)
-        ids_only = vq.nearest_codebook_indices(z, cb)
-        ref_idx, ref_codes = vq.nearest_with_codes(z, cb, impl="torch")
+        with Routes(torch) as taken:
+            idx, codes = vq.nearest_with_codes(z, cb)
+            ids_only = vq.nearest_codebook_indices(z, cb)
+            ref_idx, ref_codes = vq.nearest_with_codes(z, cb, impl="torch")
         torch.cuda.synchronize()
         want = "wgmma" if dtype == torch.bfloat16 else "simt"
-        routes = {r: vq.ROUTE_LAUNCHES[r] - before[r] for r in vq.ROUTES}
+        routes = taken.counts
         if routes != {r: 2 if r == want else 0 for r in vq.ROUTES}:
             raise AssertionError(f"vq {dtype}: variants launched {routes}, expected {want}")
         if not torch.equal(codes, cb[idx.long()]):
@@ -755,12 +765,11 @@ def live_head(torch, pipe, seed: int = 5) -> None:
         w.copy_(torch.randn(w.shape, generator=torch.Generator().manual_seed(seed)) * 0.02)
 
 
-def run_main_path(torch, np, build_pipeline, kernels, card: str,
-                  config: str = "config/mage_caterv1.yaml", want=None,
-                  spatial_attn: str = "flat") -> tuple:
-    """One path at full width: launch counts around one ``generate``, output
-    checks, frames/s (median of 3), peak memory and the stage split.
-    Returns (launch counts, the path's numbers)."""
+def run_main_path(torch, np, build_pipeline, config: str = "config/mage_caterv1.yaml",
+                  want=None, spatial_attn: str = "flat") -> dict:
+    """One path at full width: launch counts around one ``generate`` and
+    output checks (MAGE+: the generated latents neither constant nor
+    non-finite, a live head). Returns the launch counts."""
     pipe = build_pipeline(config, FRAMES, device="cuda", seed=0, spatial_attn=spatial_attn)
     if not pipe.use_cids:
         live_head(torch, pipe)
@@ -771,75 +780,27 @@ def run_main_path(torch, np, build_pipeline, kernels, card: str,
     torch.cuda.synchronize()
 
     video, launches, routes = count_launches(
-        torch, kernels, lambda: pipe.generate(batch, generator=gen.manual_seed(1), cached=True))
+        torch, lambda: pipe.generate(batch, generator=gen.manual_seed(1), cached=True))
     log(f"{config} ({spatial_attn}) launches per generate: {launches}, vq variants {routes}")
     expect(launches, want, f"{config} ({spatial_attn}) generate")
-    if routes != {"simt": 0, "wgmma": launches["vq_nearest"]}:
+    if routes != {"simt": 0, "wgmma": launches["vq"]}:
         raise AssertionError("the main path's bf16 vq launch did not take the wgmma variant")
     if tuple(video.shape) != (BATCH, FRAMES, RES, RES, 3):
         raise AssertionError(f"output shape {tuple(video.shape)}")
     if not bool(torch.isfinite(video.float()).all()):
         raise AssertionError("non-finite frames")
-
-    torch.cuda.reset_peak_memory_stats()
-    times = []
-    for i in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        pipe.generate(batch, generator=gen.manual_seed(2 + i), cached=True)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    gen_frames = BATCH * (FRAMES - 1)
-    result = {
-        "config": config, "generated_frames_per_s": gen_frames / statistics.median(times),
-        "generate_s": times, "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
-        "card": card, "batch": BATCH, "frames_length": FRAMES, "dtype": "bfloat16",
-        "sampler": "cached", "spatial_attn": spatial_attn,
-        "stage_ms": stage_breakdown(torch, pipe, batch, gen),
-    }
-    log("path: " + json.dumps(result))
-    return launches, result
-
-
-def stage_breakdown(torch, pipe, batch, gen) -> dict:
-    """Device time of the three stages ``generate`` runs, by CUDA events
-    around the same calls it makes (median of 3). For MAGE+ it also checks
-    that the generated latents are not all equal (a live head)."""
-    first = torch.from_numpy(batch["images"][:, :1]).to("cuda", torch.bfloat16)
-    text = torch.from_numpy(batch["text"]).cuda()
-    speed = torch.from_numpy(batch["speed"]).to("cuda", torch.bfloat16)
-
-    def encode():
-        if pipe.first_stage.is_discrete:
-            return pipe.first_stage.encode(first)
-        return pipe.first_stage.encode(first, generator=gen.manual_seed(1)).to(pipe.dtype)
-
-    stages = {
-        "first_frame_encode": encode,
-        "ar_core": lambda: pipe.core.generate_cached(
-            lat0, text, speed, generator=gen.manual_seed(1)),
-        "frame_decode": lambda: pipe.first_stage.decode(latents),
-    }
-    lat0 = stages["first_frame_encode"]()
-    latents = stages["ar_core"]()
     if not pipe.use_cids:
+        first = torch.from_numpy(batch["images"][:, :1]).to("cuda", torch.bfloat16)
+        lat0 = pipe.first_stage.encode(first, generator=gen.manual_seed(1)).to(pipe.dtype)
+        latents = pipe.core.generate_cached(
+            lat0, torch.from_numpy(batch["text"]).cuda(),
+            torch.from_numpy(batch["speed"]).to("cuda", torch.bfloat16),
+            generator=gen.manual_seed(1))
         spread = float(latents.float().std())
         log(f"MAGE+ generated latents: shape {tuple(latents.shape)}, std {spread:.4g}")
         if not (spread > 0 and bool(torch.isfinite(latents.float()).all())):
             raise AssertionError("MAGE+ latents are constant or not finite")
-    out = {}
-    for name, fn in stages.items():
-        runs = []
-        for _ in range(3):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            fn()
-            end.record()
-            torch.cuda.synchronize()
-            runs.append(start.elapsed_time(end))
-        out[name] = statistics.median(runs)
-    return out
+    return launches
 
 
 def run_reference_check(torch, np, build_pipeline, spatial_attn: str = "flat") -> None:
@@ -914,18 +875,63 @@ def train_batch(torch, batch: int, context: int, seed: int) -> dict:
             "text": text, "speed": torch.rand(batch, generator=gen, device="cuda")}
 
 
-def count_launches(torch, kernels, fn):
-    """``fn()`` with every launch count set to 0 just before and read just
-    after -> (fn's result, the counts, the vq launches per variant)."""
-    from mage_tpu_torch.ops import vq
+class Patches:
+    """Attributes of the port replaced for one phase or check (``_patch``
+    in ``__enter__``) and put back when it ends."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self._undo = []
+        self.reset()
+
+    def reset(self) -> None:
+        pass
+
+    def _patch(self, owner, name, wrap) -> None:
+        old = getattr(owner, name)
+        self._undo.append((owner, name, old))
+        setattr(owner, name, wrap(old))
+
+    def __exit__(self, *exc) -> None:
+        for owner, name, old in reversed(self._undo):
+            setattr(owner, name, old)
+        self._undo.clear()
+
+
+class Routes(Patches):
+    """The vq kernel's variants taken while it is open (``counts``): each
+    value ``vq.route`` returns, counted."""
+
+    def reset(self) -> None:
+        self.counts = {"simt": 0, "wgmma": 0}
+
+    def __enter__(self) -> "Routes":
+        from mage_tpu_torch.ops import vq
+
+        def counted(old):
+            def route(z_flat, codebook):
+                variant = old(z_flat, codebook)
+                self.counts[variant] += 1
+                return variant
+            return route
+
+        self._patch(vq, "route", counted)
+        return self
+
+
+def count_launches(torch, fn):
+    """``fn()`` with the launch record read just before and just after ->
+    (fn's result, the launches of each of ``KERNELS``, the vq launches per
+    variant)."""
+    from mage_tpu_torch.utils import trace
 
     torch.cuda.synchronize()
-    for kern in kernels.values():
-        kern.launches = 0
-    vq.ROUTE_LAUNCHES.update(dict.fromkeys(vq.ROUTES, 0))
-    out = fn()
-    torch.cuda.synchronize()
-    return out, {name: kern.launches for name, kern in kernels.items()}, dict(vq.ROUTE_LAUNCHES)
+    before = trace.launch_counts()
+    with Routes(torch) as routes:
+        out = fn()
+        torch.cuda.synchronize()
+    after = trace.launch_counts()
+    return out, {k: after.get(k, 0) - before.get(k, 0) for k in KERNELS}, routes.counts
 
 
 def expect(launches: dict, want: dict, what: str) -> None:
@@ -954,95 +960,12 @@ def spatial_blocks(pipe) -> int:
     return sum(1 for i in range(len(pipe.core.generate_model.blocks)) if i % 3)
 
 
-def train_stage_split(torch, mt, pipe, opt, batch, gen) -> dict:
-    """Device time of the train step's four stages (median of 3) by CUDA
-    events around the calls ``make_mage_train_step`` makes: the f32 frozen
-    encode, the bf16 forward through the loss, its backward, the Adam step;
-    and the peak GiB of the encode alone and of the rest of the step, each
-    from a reset of the peak counter (the last of the 3 runs)."""
-    names = ("encode", "forward", "backward", "optimizer")
-    runs = {name: [] for name in names}
-    peaks = {}
-    for _ in range(3):
-        events = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
-        opt.zero_grad(set_to_none=True)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        events[0].record()
-        latents = pipe.encode_first_stage(batch["images"])
-        events[1].record()
-        torch.cuda.synchronize()
-        peaks["encode_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
-        torch.cuda.reset_peak_memory_stats()
-        events[2].record()
-        params = mt.cast_floating(dict(pipe.core.named_parameters()), torch.bfloat16)
-        terms = pipe.loss_terms({**batch, "latents": latents}, params=params,
-                                compute_dtype=torch.bfloat16, generator=gen)
-        loss = mt.train_loss(pipe, terms, TRAIN_BETA, TRAIN_ALPHA)
-        events[3].record()
-        loss.backward()
-        events[4].record()
-        opt.step()
-        events[5].record()
-        torch.cuda.synchronize()
-        peaks["rest_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
-        for name, (a, b) in zip(names, ((0, 1), (2, 3), (3, 4), (4, 5))):
-            runs[name].append(events[a].elapsed_time(events[b]))
-    return {**{name: statistics.median(v) for name, v in runs.items()}, **peaks}
-
-
-def train_step_flops(torch, mt, pipe, batch, gen) -> dict:
-    """TFLOP of one train step's encode, forward and backward, as
-    ``torch.utils.flop_counter`` counts them (products and convolutions;
-    the vq kernel, a ctypes launch, is not counted)."""
-    from torch.utils.flop_counter import FlopCounterMode
-
-    out = {}
-    with FlopCounterMode(display=False) as fc:
-        latents = pipe.encode_first_stage(batch["images"])
-    out["encode"] = fc.get_total_flops() / 1e12
-    with FlopCounterMode(display=False) as fc:
-        params = mt.cast_floating(dict(pipe.core.named_parameters()), torch.bfloat16)
-        terms = pipe.loss_terms({**batch, "latents": latents}, params=params,
-                                compute_dtype=torch.bfloat16, generator=gen)
-        loss = mt.train_loss(pipe, terms, TRAIN_BETA, TRAIN_ALPHA)
-    out["forward"] = fc.get_total_flops() / 1e12
-    with FlopCounterMode(display=False) as fc:
-        loss.backward()
-    out["backward"] = fc.get_total_flops() / 1e12
-    pipe.core.zero_grad(set_to_none=True)
-    return out
-
-
-def profile_train_step(torch, step, batch, gen, s_per_step: float) -> dict:
-    """One train step under ``torch.profiler``: the device time summed over
-    its kernels, that sum's share of the step's unprofiled time (the busy
-    share; the kernels run on one stream), and the 12 kernels with the most
-    device time. Only the kernels' own records count: an operator's record
-    also carries the time of the kernels it launched."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        step(batch, TRAIN_LR, TRAIN_BETA, TRAIN_ALPHA, generator=gen)
-        torch.cuda.synchronize()
-
-    def device_us(e):
-        return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
-
-    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    total_ms = sum(device_us(e) for e in events) / 1e3
-    top = sorted(events, key=device_us, reverse=True)[:12]
-    return {"device_ms": total_ms, "busy_share": total_ms / (s_per_step * 1e3),
-            "top": [{"name": e.key[:80], "ms": device_us(e) / 1e3, "calls": e.count}
-                    for e in top]}
-
-
-def run_training(torch, build_pipeline, kernels, card: str) -> tuple:
+def run_training(torch, build_pipeline) -> tuple:
     """MAGE stage-2 training at full width, bf16, batch 16, 16 frames:
-    launch counts around the timed steps and one eval step per spatial
-    route, s/step, the stage split, peak memory with remat off and on.
-    Returns (launches per train step, per eval step on each route, numbers)."""
+    launch counts around the steps (on raw frames, then on latents encoded
+    before them) and one eval step per spatial route, finite losses, and a
+    step with remat on. Returns (launches per train step, per eval step on
+    each route)."""
     from mage_tpu_torch.training import mage_trainer as mt
 
     pipe = build_pipeline("config/mage_caterv1.yaml", FRAMES, device="cuda", seed=0)
@@ -1051,25 +974,17 @@ def run_training(torch, build_pipeline, kernels, card: str) -> tuple:
     batch = train_batch(torch, TRAIN_BATCH, pipe.core.text_encoder.positions.num_embeddings, 0)
     gen = torch.Generator(device="cuda").manual_seed(1)
     args = (TRAIN_LR, TRAIN_BETA, TRAIN_ALPHA)
-
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     loss_warm = float(step(batch, *args, generator=gen)["final_loss"])  # warm-up
-    peak_off = torch.cuda.max_memory_allocated() / 2**30
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
 
-    def timed_steps(on=batch):
-        start.record()
+    def steps(on=batch):
         for _ in range(TRAIN_STEPS):
             terms = step(on, *args, generator=gen)
-        end.record()
         return terms
 
-    terms, launches, routes = count_launches(torch, kernels, timed_steps)
-    s_per_step = start.elapsed_time(end) / TRAIN_STEPS / 1e3
+    terms, launches, routes = count_launches(torch, steps)
     log(f"MAGE train: launches in {TRAIN_STEPS} steps {launches}, vq variants {routes}")
     gelu = mlp_launches(steps=TRAIN_STEPS)
-    expect(launches, {"vq_nearest": TRAIN_STEPS, **gelu}, "MAGE train steps")
+    expect(launches, {"vq": TRAIN_STEPS, **gelu}, "MAGE train steps")
     if routes != {"simt": TRAIN_STEPS, "wgmma": 0}:
         raise AssertionError("the f32 frozen encode's vq launch did not take the SIMT variant")
     # the same steps on latents encoded once before them, as the e2e chains
@@ -1077,66 +992,41 @@ def run_training(torch, build_pipeline, kernels, card: str) -> tuple:
     lat_batch = dict(batch, latents=pipe.encode_first_stage(batch["images"]))
     del lat_batch["images"]
     step(lat_batch, *args, generator=gen)  # warm-up
-    _, lat_launches, _ = count_launches(torch, kernels, lambda: timed_steps(lat_batch))
-    s_per_step_latents = start.elapsed_time(end) / TRAIN_STEPS / 1e3
+    _, lat_launches, _ = count_launches(torch, lambda: steps(lat_batch))
     expect(lat_launches, gelu, "MAGE train steps on precomputed latents")
     loss_after = float(terms["final_loss"])
     if not (math.isfinite(loss_warm) and math.isfinite(loss_after)):
         raise AssertionError(f"non-finite training loss: {loss_warm}, {loss_after}")
-    stages = train_stage_split(torch, mt, pipe, opt, batch, gen)
-    tflop = train_step_flops(torch, mt, pipe, batch, gen)
-    tflop_per_s = {k: v / stages[k] * 1e3 for k, v in tflop.items()}
-    trace = profile_train_step(torch, step, batch, gen, s_per_step)
-    log("MAGE train step under torch.profiler: " + json.dumps(trace))
 
     pipe.core.remat = pipe.core.generate_model.remat = True
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     loss_remat = float(step(batch, *args, generator=gen)["final_loss"])
-    peak_on = torch.cuda.max_memory_allocated() / 2**30
-    stages_remat = train_stage_split(torch, mt, pipe, opt, batch, gen)
     pipe.core.remat = pipe.core.generate_model.remat = False
     if not math.isfinite(loss_remat):
         raise AssertionError("non-finite loss with remat on")
 
-    evals, eval_ms_by_route = {}, {}
+    evals = {}
     fused_pipe = build_pipeline("config/mage_caterv1.yaml", FRAMES, device="cuda", seed=0,
                                 spatial_attn="fusedblock")
     for route, pipe_r in (("flat", pipe), ("fusedblock", fused_pipe)):
         eval_step = mt.make_mage_eval_step(pipe_r, torch.bfloat16)
         eval_step(batch, TRAIN_BETA, TRAIN_ALPHA, generator=gen)  # warm-up
         terms, counts, _ = count_launches(
-            torch, kernels, lambda: eval_step(batch, TRAIN_BETA, TRAIN_ALPHA, generator=gen))
-        eval_ms = time_ms(lambda: eval_step(batch, TRAIN_BETA, TRAIN_ALPHA, generator=gen),
-                          iters=3, warmup=0)
-        op = "axial_block_fused" if route == "fusedblock" else "axial_slot_attention"
+            torch, lambda: eval_step(batch, TRAIN_BETA, TRAIN_ALPHA, generator=gen))
+        op = "axial_block" if route == "fusedblock" else "axial"
         log(f"MAGE eval step ({route}): launches {counts}, final loss "
             f"{float(terms['final_loss'])}")
         mlps = MA_BLOCKS + DEC_BLOCKS - (spatial_blocks(pipe_r) if route == "fusedblock" else 0)
-        expect(counts, {"vq_nearest": 1, op: spatial_blocks(pipe_r), "quick_gelu": mlps},
+        expect(counts, {"vq": 1, op: spatial_blocks(pipe_r), "quick_gelu": mlps},
                f"MAGE eval step ({route})")
         if not math.isfinite(float(terms["final_loss"])):
             raise AssertionError(f"non-finite eval loss ({route})")
         evals[route] = counts
-        eval_ms_by_route[route] = eval_ms
-    result = {
-        "config": "config/mage_caterv1.yaml", "card": card, "batch": TRAIN_BATCH,
-        "frames_length": FRAMES, "dtype": "bfloat16 over f32 masters",
-        "tf32": {"cudnn": torch.backends.cudnn.allow_tf32,
-                 "matmul": torch.backends.cuda.matmul.allow_tf32},
-        "s_per_step": s_per_step, "s_per_step_precomputed_latents": s_per_step_latents,
-        "stage_ms": stages, "stage_ms_remat": stages_remat,
-        "stage_tflop": tflop, "stage_tflop_per_s": tflop_per_s,
-        "peak_gib_remat_off": peak_off, "peak_gib_remat_on": peak_on,
-        "eval_step_ms": eval_ms_by_route, "loss_after_warmup": loss_warm,
-        "loss_after_steps": loss_after, "loss_remat_step": loss_remat,
-        "vq_launches_per_step": launches["vq_nearest"] / TRAIN_STEPS,
-    }
-    log("MAGE training: " + json.dumps(result))
-    return {k: v / TRAIN_STEPS for k, v in launches.items()}, evals, result
+    log(f"MAGE training: losses after the warm-up {loss_warm}, after {TRAIN_STEPS} steps "
+        f"{loss_after}, with remat {loss_remat}")
+    return {k: v / TRAIN_STEPS for k, v in launches.items()}, evals
 
 
-def run_magep_training(torch, build_pipeline, kernels, batch_size: int) -> dict:
+def run_magep_training(torch, build_pipeline, batch_size: int) -> dict:
     """MAGE+ (KL-AE first stage, auto-beta) for 3 bf16 steps: beta in [0, 1]
     and a finite PID state each step."""
     from mage_tpu_torch.training import mage_trainer as mt
@@ -1164,7 +1054,7 @@ def run_magep_training(torch, build_pipeline, kernels, batch_size: int) -> dict:
             state["log"].append(row)
 
     start = time.perf_counter()
-    _, launches, _ = count_launches(torch, kernels, steps)
+    _, launches, _ = count_launches(torch, steps)
     seconds = (time.perf_counter() - start) / TRAIN_STEPS
     log(f"MAGE+ train (batch {batch_size}): launches in {TRAIN_STEPS} steps {launches}, "
         f"{seconds} s/step (host clock, each step read back)")
@@ -1191,7 +1081,7 @@ def check_train_shapes(torch, vq, ax, tl, gen) -> dict:
     if mismatch > TRAIN_VQ_N * 1e-3 or bool((gap > 1e-5 * dist.abs().amax(1)).any()):
         raise AssertionError(f"vq f32 at the training shape: {mismatch} ids differ")
     del zd, cbd, dist, gap
-    out = {"vq_nearest": (
+    out = {"vq": (
         graph_ms(torch, lambda: vq.nearest_codebook_indices(z, cb), iters=5),
         bound_ms(TRAIN_VQ_N * VQ_D * 4 + VQ_K * VQ_D * 4 + TRAIN_VQ_N * 4,
                  2.0 * TRAIN_VQ_N * VQ_K * VQ_D)[0])}
@@ -1203,7 +1093,7 @@ def check_train_shapes(torch, vq, ax, tl, gen) -> dict:
     want = ax.axial_slot_attention(q, k, v, HEADS, impl="torch").float()
     if not torch.allclose(got, want, rtol=BF16_RTOL, atol=1e-5):
         raise AssertionError("axial at G=4096: kernel disagrees with plain")
-    out["axial_slot_attention"] = (
+    out["axial"] = (
         time_ms(lambda: ax.axial_slot_attention(q, k, v, HEADS)),
         bound_ms(4 * q.numel() * 2, 4.0 * TRAIN_G * AX_S * AX_S * AX_D)[0])
     block = block_weights(torch, tl, gen, torch.bfloat16)
@@ -1215,7 +1105,7 @@ def check_train_shapes(torch, vq, ax, tl, gen) -> dict:
                               atol=BLOCK_BF16_ATOL_REL * float(want.abs().max())):
             raise AssertionError("fused block at G=4096: kernel disagrees with plain")
         d = AX_D
-        out["axial_block_fused"] = (
+        out["axial_block"] = (
             time_ms(lambda: ax.axial_block_fused(q, params, HEADS)),
             bound_ms((2 * q.numel() + 12 * d * d + 13 * d) * 2,
                      2.0 * TRAIN_G * AX_S * 12 * d * d + 4.0 * TRAIN_G * AX_S * AX_S * d,
@@ -1225,7 +1115,7 @@ def check_train_shapes(torch, vq, ax, tl, gen) -> dict:
     return out
 
 
-def run_train_reference_check(torch, np, build_pipeline, kernels) -> None:
+def run_train_reference_check(torch, np, build_pipeline) -> None:
     """f32, batch 2, full width, dropout 0, the posterior noise passed in:
     one train step's loss terms and every parameter's gradient on the GPU
     (kernels on the path, cuDNN off) against the CPU (plain versions), then
@@ -1268,23 +1158,23 @@ def run_train_reference_check(torch, np, build_pipeline, kernels) -> None:
             return t
 
         with torch.backends.cudnn.flags(enabled=cudnn, allow_tf32=False):
-            terms, train_launches, _ = count_launches(torch, kernels, lambda: step(
+            terms, train_launches, _ = count_launches(torch, lambda: step(
                 batch, TRAIN_LR, TRAIN_BETA, TRAIN_ALPHA, posterior_noise=noise))
             train = ({k: v.item() for k, v in terms.items()},
                      {k: p.grad.cpu() for k, p in pipe.core.named_parameters()
                       if p.grad is not None})
             pipe.core.load_state_dict(weights)
             pipe.core.zero_grad(set_to_none=True)
-            terms, eval_launches, _ = count_launches(torch, kernels, eval_mode_loss)
+            terms, eval_launches, _ = count_launches(torch, eval_mode_loss)
             evals = ({k: v.item() for k, v in terms.items()},
                      {k: p.grad.cpu() for k, p in pipe.core.named_parameters()
                       if p.grad is not None})
         if device == "cuda":
             log(f"f32 training check on the GPU ({run}): launches in the train step "
                 f"{train_launches}, in the eval-mode loss {eval_launches}")
-            expect(train_launches, {"vq_nearest": 1, **mlp_launches(steps=1)},
+            expect(train_launches, {"vq": 1, **mlp_launches(steps=1)},
                    "f32 train step")
-            expect(eval_launches, {"vq_nearest": 1, "axial_slot_attention": spatial_blocks(pipe),
+            expect(eval_launches, {"vq": 1, "axial": spatial_blocks(pipe),
                                    **mlp_launches(steps=1)}, "f32 eval-mode loss")
         outs[run] = {"train": train, "eval": evals}
         if device == "cpu":  # f64 runs of both losses, to read every run against
@@ -1378,7 +1268,7 @@ def s1_stage_split(torch, model, opt, loss_fn) -> dict:
     return {name: statistics.median(v) for name, v in runs.items()}
 
 
-def timed_steps(torch, kernels, step) -> tuple:
+def timed_steps(torch, step) -> tuple:
     """``S1_STEPS`` calls of ``step()`` between two CUDA events, launch
     counts around them -> (last result, s/step, counts, vq variants)."""
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -1390,11 +1280,11 @@ def timed_steps(torch, kernels, step) -> tuple:
         end.record()
         return out
 
-    out, launches, routes = count_launches(torch, kernels, steps)
+    out, launches, routes = count_launches(torch, steps)
     return out, start.elapsed_time(end) / S1_STEPS / 1e3, launches, routes
 
 
-def run_vqvae_training(torch, kernels, name: str, card: str) -> dict:
+def run_vqvae_training(torch, name: str, card: str) -> dict:
     """Stage-1 VQ-VAE training at the config's widths, f32, batch 16
     (``train_vqvae.py``'s): a warm-up, 3 timed train steps (1 vq launch
     each, the SIMT variant with codes), the stage split, 1 eval step (1
@@ -1412,23 +1302,23 @@ def run_vqvae_training(torch, kernels, name: str, card: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
     warm = {k: float(v) for k, v in step(images, S1_LR).items()}
     terms, s_per_step, launches, routes = timed_steps(
-        torch, kernels, lambda: step(images, S1_LR))
+        torch, lambda: step(images, S1_LR))
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"VQ-VAE {name} train: launches in {S1_STEPS} steps {launches}, vq variants {routes}")
-    expect(launches, {"vq_nearest": S1_STEPS}, f"VQ-VAE {name} train steps")
+    expect(launches, {"vq": S1_STEPS}, f"VQ-VAE {name} train steps")
     if routes != {"simt": S1_STEPS, "wgmma": 0}:
         raise AssertionError(f"VQ-VAE {name}: the f32 vq launch did not take the SIMT variant")
     stages = s1_stage_split(torch, model, opt,
                             lambda: vt.loss_terms(model, images, S1_BETA)[0])
     before = running_buffers(model)
-    evals, eval_launches, _ = count_launches(torch, kernels,
+    evals, eval_launches, _ = count_launches(torch,
                                              lambda: vt.make_eval_step(model)(images))
     n_dead, restart_launches, _ = count_launches(
-        torch, kernels, lambda: vt.make_restart_dead_codes(model)(images, generator=gen))
+        torch, lambda: vt.make_restart_dead_codes(model)(images, generator=gen))
     log(f"VQ-VAE {name}: launches in an eval step {eval_launches}, in a restart "
         f"{restart_launches}")
-    expect(eval_launches, {"vq_nearest": 1}, f"VQ-VAE {name} eval step")
-    expect(restart_launches, {"vq_nearest": 2}, f"VQ-VAE {name} restart")
+    expect(eval_launches, {"vq": 1}, f"VQ-VAE {name} eval step")
+    expect(restart_launches, {"vq": 2}, f"VQ-VAE {name} restart")
     after = running_buffers(model)
     if not all(torch.equal(after[k], v) for k, v in before.items()):
         raise AssertionError(f"VQ-VAE {name}: the eval step or restart moved the running stats")
@@ -1448,7 +1338,7 @@ def run_vqvae_training(torch, kernels, name: str, card: str) -> dict:
     return result
 
 
-def run_klae_training(torch, kernels, card: str) -> dict:
+def run_klae_training(torch, card: str) -> dict:
     """KL-AE training at ``train_autoencoder_kl.py``'s defaults (128 px, ch
     128, ch_mult 1,2,4,4, 2 res blocks, z 4, batch 8, Adam 4.5e-6, KL weight
     1e-6), f32: a warm-up and 3 timed steps launching no kernel (train mode
@@ -1469,7 +1359,7 @@ def run_klae_training(torch, kernels, card: str) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     warm = {k: float(v) for k, v in step(images, generator=gen).items()}
-    terms, s_per_step, launches, _ = timed_steps(torch, kernels,
+    terms, s_per_step, launches, _ = timed_steps(torch,
                                                  lambda: step(images, generator=gen))
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"KL-AE train: launches in {S1_STEPS} steps {launches}")
@@ -1477,12 +1367,12 @@ def run_klae_training(torch, kernels, card: str) -> dict:
     stages = s1_stage_split(torch, model, opt, lambda: kt.loss_terms(
         model, images, KL_WEIGHT, generator=gen)[0])
     eval_step = kt.make_eval_step(model)
-    evals, eval_launches, _ = count_launches(torch, kernels,
+    evals, eval_launches, _ = count_launches(torch,
                                              lambda: eval_step(images, generator=gen))
     eval_ms = time_ms(lambda: eval_step(images, generator=gen), iters=3, warmup=0)
     chains = sum(GN_CONV_SITES.values())
     log(f"KL-AE eval step: launches {eval_launches}")
-    expect(eval_launches, {"gn_silu_conv3x3": chains, "gn_stats": chains}, "KL-AE eval step")
+    expect(eval_launches, {"gn_conv": chains, "gn_stats": chains}, "KL-AE eval step")
     values = [*warm.values(), *(float(v) for v in terms.values()),
               *(float(v) for v in evals.values())]
     if not all(math.isfinite(v) for v in values):
@@ -1506,11 +1396,11 @@ def check_stage1_vq(torch, vq, gen) -> dict:
     for name, (n, k, d) in S1_VQ_SHAPES.items():
         z = torch.relu(torch.randn(n, d, generator=gen, device="cuda"))
         cb = torch.randn(k, d, generator=gen, device="cuda") * 0.5
-        before = dict(vq.ROUTE_LAUNCHES)
-        idx, codes = vq.nearest_with_codes(z, cb)
-        ref, _ = vq.nearest_with_codes(z, cb, impl="torch")
+        with Routes(torch) as taken:
+            idx, codes = vq.nearest_with_codes(z, cb)
+            ref, _ = vq.nearest_with_codes(z, cb, impl="torch")
         torch.cuda.synchronize()
-        if vq.ROUTE_LAUNCHES["simt"] != before["simt"] + 1:
+        if taken.counts["simt"] != 1:
             raise AssertionError(f"vq at {(n, k, d)}: not the SIMT variant")
         mismatch = int((idx != ref).sum())
         if mismatch or not torch.equal(codes, cb[idx.long()]):
@@ -1540,7 +1430,7 @@ def shift_invariant_biases(model) -> set:
     return keys
 
 
-def run_stage1_reference_check(torch, kernels) -> dict:
+def run_stage1_reference_check(torch) -> dict:
     """f32, TF32 off, batch 2 of 64-px frames, each VQ-VAE at its config's
     widths: one train step on the GPU (the vq kernel) against the CPU
     (plain version), both read against an f64 CPU step on the same weights.
@@ -1572,9 +1462,9 @@ def run_stage1_reference_check(torch, kernels) -> dict:
             with torch.backends.cudnn.flags(enabled=libraries, allow_tf32=False), \
                     torch.backends.mkldnn.flags(enabled=libraries):
                 terms, launches, _ = count_launches(
-                    torch, kernels, lambda: step(images.to(device, dtype), S1_LR))
+                    torch, lambda: step(images.to(device, dtype), S1_LR))
             if device == "cuda":
-                expect(launches, {"vq_nearest": 1}, f"VQ-VAE {name} f32 check step")
+                expect(launches, {"vq": 1}, f"VQ-VAE {name} f32 check step")
             runs[label] = (
                 {k: float(v) for k, v in terms.items()},
                 {k: p.grad.cpu().double() for k, p in model.named_parameters()},
@@ -1623,29 +1513,6 @@ def run_stage1_reference_check(torch, kernels) -> dict:
 CLI_TRAIN, CLI_VAL, CLI_BATCH = 64, 16, 16
 CLI_STEPS = CLI_TRAIN // CLI_BATCH
 CLI_KL_BATCH = 8  # train_autoencoder_kl's default batch
-
-
-class Patches:
-    """Attributes of the port replaced for one phase (``_patch`` in
-    ``__enter__``) and put back when it ends."""
-
-    def __init__(self, torch):
-        self.torch = torch
-        self._undo = []
-        self.reset()
-
-    def reset(self) -> None:
-        pass
-
-    def _patch(self, owner, name, wrap) -> None:
-        old = getattr(owner, name)
-        self._undo.append((owner, name, old))
-        setattr(owner, name, wrap(old))
-
-    def __exit__(self, *exc) -> None:
-        for owner, name, old in reversed(self._undo):
-            setattr(owner, name, old)
-        self._undo.clear()
 
 
 class CliProbe(Patches):
@@ -1749,7 +1616,7 @@ class CliProbe(Patches):
                 "loader_wait_ms_per_batch": statistics.mean(waits) if waits else None}
 
 
-def cli_run(torch, kernels, probe, label: str, fn, want: dict, steps: int, card: str):
+def cli_run(torch, probe, label: str, fn, want: dict, steps: int, card: str):
     """One entry point's ``main(argv)`` with the launch counts read around
     it, which must be ``want``, and the train steps or ``generate`` calls
     the probe timed, which must be ``steps``; logs its line -> (fn's
@@ -1758,7 +1625,7 @@ def cli_run(torch, kernels, probe, label: str, fn, want: dict, steps: int, card:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    out, launches, routes = count_launches(torch, kernels, fn)
+    out, launches, routes = count_launches(torch, fn)
     wall = time.perf_counter() - t0
     expect(launches, want, label)
     if len(probe.steps) != steps:
@@ -1839,7 +1706,7 @@ def check_cli_sample_ids(torch, capture: dict, batch_images, ckpt_dir: str) -> N
         raise AssertionError("cli sample: the card's f32 ids differ from the CPU's")
 
 
-def check_converted_sample(torch, kernels, probe, capture: dict, sample: list, ckpt: str,
+def check_converted_sample(torch, probe, capture: dict, sample: list, ckpt: str,
                            tmp: str, generate: dict, card: str) -> dict:
     """The trained core as a reference checkpoint (DDP's ``module.`` keys
     under ``state_dict``), converted by ``compat.convert mage`` next to the
@@ -1857,7 +1724,7 @@ def check_converted_sample(torch, kernels, probe, capture: dict, sample: list, c
                   "--output", converted])
     argv = list(sample)
     argv[argv.index("--test_model") + 1] = converted
-    _, line = cli_run(torch, kernels, probe, "main_mage test (MAGE, converted)",
+    _, line = cli_run(torch, probe, "main_mage test (MAGE, converted)",
                       lambda: main_mage.main(argv), generate, 1, card)
     if not torch.equal(probe.cached[0]["ids"], capture["ids"]):
         raise AssertionError("converted sample: ids differ from the port checkpoint's")
@@ -1865,7 +1732,7 @@ def check_converted_sample(torch, kernels, probe, capture: dict, sample: list, c
     return line
 
 
-def run_cli_phase(torch, np, kernels, card: str) -> dict:
+def run_cli_phase(torch, np, card: str) -> dict:
     """The README's chains on the card through ``mage_tpu_torch.cli`` and the
     generator, in process and in a temporary directory: generate 64 + 16
     Moving-MNIST clips; compose them on the card; ``train_vqvae`` (f4, dim
@@ -1903,37 +1770,37 @@ def run_cli_phase(torch, np, kernels, card: str) -> dict:
         models = os.path.join(tmp, "model")
         # a train step and an eval step launch vq once, so does the
         # reconstruction of the fixed test images
-        _, lines["train_vqvae"] = cli_run(torch, kernels, probe, "train_vqvae", lambda: train_vqvae.main(
+        _, lines["train_vqvae"] = cli_run(torch, probe, "train_vqvae", lambda: train_vqvae.main(
             stage1 + ["--output-folder", "mnist_512_256", "--batch-size", str(CLI_BATCH),
                       "--model-folder", models]),
-            {"vq_nearest": CLI_STEPS + CLI_VAL // CLI_BATCH + 1}, CLI_STEPS, card)
+            {"vq": CLI_STEPS + CLI_VAL // CLI_BATCH + 1}, CLI_STEPS, card)
         mage_cfg = os.path.join(tmp, "mage_mnist.yaml")
         cli_config("config/mage_mnist.yaml", mage_cfg, root,
                    os.path.join(models, "mnist_512_256", "best"))
         ckpt = os.path.join(tmp, "results", "mage_mnist")
         _, lines["main_mage train (MAGE)"] = cli_run(
-            torch, kernels, probe, "main_mage train (MAGE)",
+            torch, probe, "main_mage train (MAGE)",
             lambda: main_mage.main(["--config", mage_cfg, "--split", "train",
                                     "--checkpoint-path", ckpt, "--device", "cuda"]),
-            {"vq_nearest": CLI_STEPS + 1, "axial_slot_attention": 4,
+            {"vq": CLI_STEPS + 1, "axial": 4,
              **mlp_launches(steps=CLI_STEPS, forwards=1)}, CLI_STEPS, card)
-        generate = {"vq_nearest": 1, "axial_slot_attention": 4 * FRAMES,
-                    "cached_slot_attention": 2 * FRAMES, **mlp_launches(cached=[FRAMES])}
+        generate = {"vq": 1, "axial": 4 * FRAMES,
+                    "cached": 2 * FRAMES, **mlp_launches(cached=[FRAMES])}
         sample = ["--split", "test", "--test_model", os.path.join(ckpt, "model_best"),
                   "--max-test-items", "2", "--sample-batch-size", "2", "--device", "cuda"]
         torch.backends.cudnn.allow_tf32 = False  # the f32 sample is held to the CPU's ids
         done, lines["main_mage test (MAGE, f32)"] = cli_run(
-            torch, kernels, probe, "main_mage test (MAGE, f32)",
+            torch, probe, "main_mage test (MAGE, f32)",
             lambda: main_mage.main(sample), generate, 1, card)
         if done != 2 or len(probe.cached) != 1:
             raise AssertionError(f"cli sample: {done} items in {len(probe.cached)} calls")
         capture, video = probe.cached[0], probe.videos[0]
         check_cli_sample_ids(torch, capture, video[:, :1].cpu(), ckpt)
         lines["main_mage test (MAGE, converted)"] = check_converted_sample(
-            torch, kernels, probe, capture, sample, ckpt, tmp, generate, card)
+            torch, probe, capture, sample, ckpt, tmp, generate, card)
         torch.backends.cudnn.allow_tf32 = True
         done, lines["main_mage test (MAGE, bf16)"] = cli_run(
-            torch, kernels, probe, "main_mage test (MAGE, bf16)",
+            torch, probe, "main_mage test (MAGE, bf16)",
             lambda: main_mage.main(sample + ["--bf16"]), generate, 1, card)
         video = probe.videos[0].float()
         if not (done == 2 and torch.isfinite(video).all() and video.abs().max() <= 1.0):
@@ -1947,30 +1814,30 @@ def run_cli_phase(torch, np, kernels, card: str) -> dict:
         chains = 2 * sum(isinstance(m, ResnetBlock) for m in kl.decoder.modules())
         del kl
         _, lines["train_autoencoder_kl"] = cli_run(
-            torch, kernels, probe, "train_autoencoder_kl", lambda: train_autoencoder_kl.main(
+            torch, probe, "train_autoencoder_kl", lambda: train_autoencoder_kl.main(
                 stage1 + ["--resolution", "64", "--ch", "64", "--ch-mult", "1", "2", "4",
                           "--output-folder", "kl_f4_mnist", "--model-folder",
                           os.path.join(tmp, "autoencoders")]),
-            {"gn_silu_conv3x3": chains * (CLI_VAL // CLI_KL_BATCH),
+            {"gn_conv": chains * (CLI_VAL // CLI_KL_BATCH),
              "gn_stats": chains * (CLI_VAL // CLI_KL_BATCH)}, CLI_TRAIN // CLI_KL_BATCH, card)
         magep_cfg = os.path.join(tmp, "mage+_mnist.yaml")
         cli_config("config/mage+_mnist.yaml", magep_cfg, root,
                    os.path.join(tmp, "autoencoders", "kl_f4_mnist", "best"))
         ckpt = os.path.join(tmp, "results", "mage+_mnist")
         _, lines["main_mage train (MAGE+)"] = cli_run(
-            torch, kernels, probe, "main_mage train (MAGE+)",
+            torch, probe, "main_mage train (MAGE+)",
             lambda: main_mage.main(["--config", magep_cfg, "--split", "train",
                                     "--checkpoint-path", ckpt, "--device", "cuda"]),
-            {"axial_slot_attention": 4, **mlp_launches(steps=CLI_STEPS, forwards=1)},
+            {"axial": 4, **mlp_launches(steps=CLI_STEPS, forwards=1)},
             CLI_STEPS, card)
         # the naive sampler (MAGE+'s default): 4 spatial blocks per step over
         # 15 steps, then one decode chunk of the 15 generated frames
         done, lines["main_mage test (MAGE+)"] = cli_run(
-            torch, kernels, probe, "main_mage test (MAGE+)",
+            torch, probe, "main_mage test (MAGE+)",
             lambda: main_mage.main(["--split", "test", "--test_model",
                                     os.path.join(ckpt, "model_best"), "--max-test-items",
                                     "1", "--device", "cuda"]),
-            {"axial_slot_attention": 4 * (FRAMES - 1), "gn_silu_conv3x3": chains,
+            {"axial": 4 * (FRAMES - 1), "gn_conv": chains,
              "gn_stats": chains, **mlp_launches(naive=[FRAMES])}, 1, card)
         if not (done == 1 and torch.isfinite(probe.videos[0]).all()):
             raise AssertionError("cli sample (MAGE+): frames not finite")
@@ -1993,7 +1860,7 @@ def cache_bytes(torch, pipe, batch: int, dtype) -> int:
     return sum(t.numel() * t.element_size() for entry in cache.values() for t in entry)
 
 
-def run_kvquant_phase(torch, np, build_pipeline, kernels, card: str) -> dict:
+def run_kvquant_phase(torch, np, build_pipeline, card: str) -> dict:
     """The cached sampler over a quantized K/V cache: MAGE on the main
     path's shapes (``config/mage_caterv1.yaml``, batch 32, 16 frames, bf16,
     flat route) with ``kv_quant`` None, "int8" and "int4" on the same
@@ -2025,10 +1892,9 @@ def run_kvquant_phase(torch, np, build_pipeline, kernels, card: str) -> dict:
         pipe.core.generate_model.kv_quant = kv
         pipe.generate(batch, generator=gen.manual_seed(1), cached=True)  # warm-up
         _, launches, _ = count_launches(
-            torch, kernels, lambda: pipe.generate(batch, generator=gen.manual_seed(1),
-                                                  cached=True))
-        want = {"vq_nearest": 1, "axial_slot_attention": 4 * FRAMES,
-                "cached_slot_attention": 0 if kv else 2 * FRAMES, "vq_decode_tail": 1,
+            torch, lambda: pipe.generate(batch, generator=gen.manual_seed(1), cached=True))
+        want = {"vq": 1, "axial": 4 * FRAMES,
+                "cached": 0 if kv else 2 * FRAMES, "vq_tail": 1,
                 **mlp_launches(cached=[FRAMES])}
         expect(launches, want, f"generate with kv_quant={kv}")
         torch.cuda.reset_peak_memory_stats()
@@ -2235,7 +2101,7 @@ class E2eProbe(Patches):
                 idx, codes = old(z, codebook, impl, with_codes)
                 if launches(impl, z):
                     z_flat = z.reshape(-1, z.shape[-1])
-                    probe._keep(("vq_nearest", tuple(z_flat.shape), z.dtype,
+                    probe._keep(("vq", tuple(z_flat.shape), z.dtype,
                                  tuple(codebook.shape), with_codes),
                                 (z_flat, codebook), (idx, codes))
                 return idx, codes
@@ -2245,7 +2111,7 @@ class E2eProbe(Patches):
             def fn(x, gamma, beta, weight, bias, *, groups=32, eps=1e-6, impl="auto"):
                 out = old(x, gamma, beta, weight, bias, groups=groups, eps=eps, impl=impl)
                 if launches(impl, x):
-                    probe._keep(("gn_silu_conv3x3", tuple(x.shape), x.dtype,
+                    probe._keep(("gn_conv", tuple(x.shape), x.dtype,
                                  tuple(weight.shape), groups, eps),
                                 (x, gamma, beta, weight, bias, groups, eps), (out,))
                 return out
@@ -2255,7 +2121,7 @@ class E2eProbe(Patches):
             def fn(q, k, v, n_head, *, impl="auto"):
                 out = old(q, k, v, n_head, impl=impl)
                 if launches(impl, q):
-                    probe._keep(("axial_slot_attention", tuple(q.shape), q.dtype, n_head),
+                    probe._keep(("axial", tuple(q.shape), q.dtype, n_head),
                                 (q, k, v, n_head), (out,))
                 return out
             return fn
@@ -2265,7 +2131,7 @@ class E2eProbe(Patches):
                 out = old(q, cache_k, cache_v, pos, n_head, impl=impl)
                 length = cache_k.shape[0]
                 if launches(impl, q) and int(pos) in (0, length // 2, length - 1):
-                    probe._keep(("cached_slot_attention", tuple(cache_k.shape), q.dtype,
+                    probe._keep(("cached", tuple(cache_k.shape), q.dtype,
                                  n_head, int(pos)),
                                 (q, cache_k, cache_v, int(pos), n_head), (out,))
                 return out
@@ -2275,7 +2141,7 @@ class E2eProbe(Patches):
             def fn(h, x, w7, b7, w8, b8, *, impl="auto"):
                 out = old(h, x, w7, b7, w8, b8, impl=impl)
                 if launches(impl, h):
-                    probe._keep(("vq_decode_tail", tuple(h.shape), h.dtype, tuple(x.shape),
+                    probe._keep(("vq_tail", tuple(h.shape), h.dtype, tuple(x.shape),
                                  tuple(w8.shape)), (h, x, w7, b7, w8, b8), (out,))
                 return out
             return fn
@@ -2381,15 +2247,15 @@ class E2eProbe(Patches):
             with torch.no_grad():
                 for key, held in self.held.items():
                     name = key[0]
-                    if name == "axial_slot_attention":
+                    if name == "axial":
                         q, k, v, n_head, got = held
                         want = ax.axial_slot_attention(q, k, v, n_head, impl="torch")
                         note(name, key, close(got, want, key))
-                    elif name == "cached_slot_attention":
+                    elif name == "cached":
                         q, ck, cv, pos, n_head, got = held
                         want = ca.cached_slot_attention(q, ck, cv, pos, n_head, impl="torch")
                         note(name, key, close(got, want, key))
-                    elif name == "vq_decode_tail":
+                    elif name == "vq_tail":
                         *inputs, got = held
                         want = vt.vq_decode_tail(*inputs, impl="torch")
                         note(name, key, close(got, want, key))
@@ -2402,7 +2268,7 @@ class E2eProbe(Patches):
                             raise AssertionError(f"e2e {key}: not bit-equal to the plain "
                                                  f"version")
                         note(name, key, 0.0)
-                    elif name == "vq_nearest":
+                    elif name == "vq":
                         z, cb, idx, codes = held
                         ref_idx, ref_codes = vq._vq_plain(z, cb)
                         rows = (idx != ref_idx).nonzero().flatten()
@@ -2492,24 +2358,24 @@ def e2e_chains(kl_chains: dict) -> list:
 
     vq_mnist = 4 + 2 + cdiv(64, 50) + cdiv(16, 50)
     train = {"steps": 4, "forwards": 1}  # stage 2: 4 train steps, one eval step
-    mnist = {"vq_nearest": vq_mnist, "axial_slot_attention": 4 + 2 * 64,
-             "cached_slot_attention": 2 * 32, **mlp_launches(**train, cached=[16] * 2)}
+    mnist = {"vq": vq_mnist, "axial": 4 + 2 * 64,
+             "cached": 2 * 32, **mlp_launches(**train, cached=[16] * 2)}
     c = kl_chains["f4"]
     decode = c * cdiv(8 * 15, 96)  # 8 videos x 15 generated frames
-    mnist_kl = {"axial_slot_attention": 4 + 64 + 60 + 2 * 64,
-                "cached_slot_attention": 32 + 2 * 32,
-                "gn_silu_conv3x3": 2 * c + 4 * decode + c * cdiv(8 * 16, 96),
+    mnist_kl = {"axial": 4 + 64 + 60 + 2 * 64,
+                "cached": 32 + 2 * 32,
+                "gn_conv": 2 * c + 4 * decode + c * cdiv(8 * 16, 96),
                 **mlp_launches(**train, cached=[16] * 3, naive=[16])}
-    mnist_kl["gn_stats"] = mnist_kl["gn_silu_conv3x3"]
-    cater = {"vq_nearest": 4 + 3 + cdiv(16, 5) + cdiv(8, 5), "axial_slot_attention": 4 + 40,
-             "cached_slot_attention": 20, **mlp_launches(**train, cached=[10])}
+    mnist_kl["gn_stats"] = mnist_kl["gn_conv"]
+    cater = {"vq": 4 + 3 + cdiv(16, 5) + cdiv(8, 5), "axial": 4 + 40,
+             "cached": 20, **mlp_launches(**train, cached=[10])}
     c = kl_chains["f8"]
     decode = c * cdiv(8 * 9, 96)
-    cater_kl = {"axial_slot_attention": 4 + 40 + 36 + 2 * 40,
-                "cached_slot_attention": 20 + 2 * 20,
-                "gn_silu_conv3x3": 2 * c + 4 * decode + c * cdiv(8 * 10, 96),
+    cater_kl = {"axial": 4 + 40 + 36 + 2 * 40,
+                "cached": 20 + 2 * 20,
+                "gn_conv": 2 * c + 4 * decode + c * cdiv(8 * 10, 96),
                 **mlp_launches(**train, cached=[10] * 3, naive=[10])}
-    cater_kl["gn_stats"] = cater_kl["gn_silu_conv3x3"]
+    cater_kl["gn_stats"] = cater_kl["gn_conv"]
     mnist_clips = ["--num-train", "64", "--num-val", "16"]
     return [
         ("train_mnist_e2e", train_mnist_e2e, E2E_VQ_CUTS + mnist_clips, mnist,
@@ -2532,7 +2398,7 @@ def e2e_chains(kl_chains: dict) -> list:
     ]
 
 
-def run_e2e_phase(torch, kernels, card: str) -> dict:
+def run_e2e_phase(torch, card: str) -> None:
     """The five e2e chains through their entry points
     (``mage_tpu_torch.cli.train_*_e2e.main``), in process and in a
     temporary directory, at their default widths with the cuts of
@@ -2546,9 +2412,7 @@ def run_e2e_phase(torch, kernels, card: str) -> dict:
     (random-init I3D), peak GiB and the launches. Then the evals phase
     (``run_evals_phase``) on the runs of ``EVAL_RUNS``, in the same
     directory and under the same probe, the probes phase
-    (``run_probes_phase``) and the diagnostics phase (``run_diags_phase``)
-    -> (the chains' lines, the evals' lines, the probes' lines, the
-    diagnostics' lines)."""
+    (``run_probes_phase``) and the diagnostics phase (``run_diags_phase``)."""
     import tempfile
 
     from mage_tpu_torch.models.autoencoder_kl import AutoencoderKL, ResnetBlock
@@ -2560,7 +2424,6 @@ def run_e2e_phase(torch, kernels, card: str) -> dict:
         kl_chains[name] = 2 * sum(isinstance(m, ResnetBlock) for m in ae.decoder.modules())
     log(f"e2e phase: cuts {E2E_CUTS}, VQ chains {E2E_VQ_CUTS[len(E2E_CUTS):]}, KL chains "
         f"{E2E_KL_CUTS[len(E2E_CUTS):]}, clips per chain as listed; decoder chains {kl_chains}")
-    lines = {}
     tf32 = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = True  # torch's default, as a user's run gets it
     with tempfile.TemporaryDirectory() as tmp, E2eProbe(torch) as probe:
@@ -2571,7 +2434,7 @@ def run_e2e_phase(torch, kernels, card: str) -> dict:
             torch.cuda.reset_peak_memory_stats()
             t0, start = time.perf_counter(), time.time()
             _, launches, routes = count_launches(
-                torch, kernels, lambda: module.main(argv + ["--out", out_dir]))
+                torch, lambda: module.main(argv + ["--out", out_dir]))
             wall = time.perf_counter() - t0
             expect(launches, want, name)
             held = probe.hold()
@@ -2600,15 +2463,13 @@ def run_e2e_phase(torch, kernels, card: str) -> dict:
                                              if k not in ("phase", "time", "extractor")}
                                 for r in rows}}
             log("e2e run: " + json.dumps(line))
-            lines[name] = line
             if name not in EVAL_RUNS + PROBE_RUNS + DIAG_RUNS:  # a full-width chain's checkpoints
                 shutil.rmtree(out_dir)               # take gigabytes
         log(f"e2e phase took {time.perf_counter() - t_phase:.1f} s")
-        evals = run_evals_phase(torch, kernels, card, tmp, probe)
-        probes = run_probes_phase(torch, kernels, card, tmp, probe)
-        diags = run_diags_phase(torch, kernels, card, tmp, probe)
+        run_evals_phase(torch, card, tmp, probe)
+        run_probes_phase(torch, card, tmp, probe)
+        run_diags_phase(torch, card, tmp, probe)
     torch.backends.cudnn.allow_tf32 = tf32
-    return lines, evals, probes, diags
 
 
 # ---- the evals phase -----------------------------------------------------------
@@ -2634,7 +2495,7 @@ def evals_steps(tmp: str) -> list:
 
     mnist_run = os.path.join(tmp, "train_mnist_e2e")
     mnist_data = ["--num-train", "64", "--num-val", "16"]  # the chain's clips
-    generate = {"axial_slot_attention": 4 * 16, "cached_slot_attention": 2 * 16,
+    generate = {"axial": 4 * 16, "cached": 2 * 16,
                 **mlp_launches(cached=[16])}
     return [
         ("train_fvd_extractor caterv2", train_fvd_extractor.main,
@@ -2646,14 +2507,14 @@ def evals_steps(tmp: str) -> list:
         ("eval_fvd_e2e", eval_fvd_e2e.main,
          ["--run", mnist_run, "--videos", "8", "--fvd-extractor",
           os.path.join(tmp, "fvdx_mnist"), "--out", os.path.join(tmp, "fvd_e2e.json"),
-          "--device", "cuda"] + mnist_data, {"vq_nearest": 1, **generate}),
+          "--device", "cuda"] + mnist_data, {"vq": 1, **generate}),
         ("eval_speed_control", eval_speed_control.main,
          ["--run", mnist_run, "--videos", "4", "--speeds", "0.05", "0.5", "0.95", "--gifs",
-          "1", "--device", "cuda"] + mnist_data, {"vq_nearest": 2, **generate}),
+          "1", "--device", "cuda"] + mnist_data, {"vq": 2, **generate}),
         ("eval_speed_control_cater", eval_speed_control_cater.main,
          ["--run", os.path.join(tmp, "train_cater_e2e"), "--dataset", "caterv1",
           "--num-train", "16", "--num-val", "8", "--gifs", "1", "--device", "cuda"],
-         {"vq_nearest": 1, "axial_slot_attention": 4 * 10, "cached_slot_attention": 2 * 10,
+         {"vq": 1, "axial": 4 * 10, "cached": 2 * 10,
           **mlp_launches(cached=[10])}),
     ]
 
@@ -2668,7 +2529,7 @@ def numbers(value) -> list:
     return [float(value)] if isinstance(value, (int, float)) and not isinstance(value, bool) else []
 
 
-def run_evals_phase(torch, kernels, card: str, tmp: str, probe) -> dict:
+def run_evals_phase(torch, card: str, tmp: str, probe) -> None:
     """The evaluation path through its entry points, from the e2e chains'
     runs in ``tmp``: each step's launches must be ``evals_steps``' and every
     kernel launch at a new shape must hold against its plain version
@@ -2677,19 +2538,18 @@ def run_evals_phase(torch, kernels, card: str, tmp: str, probe) -> dict:
     the MNIST family; every number in the evals' records is finite but the
     rate correlation (nan where the generated rates are all equal, as
     ``np.corrcoef`` gives in JAX's evals too). A line per step (wall
-    s, launches, held, what it measured) -> {label: line}."""
+    s, launches, held, what it measured)."""
     import numpy as np
 
     from mage_tpu_torch.evals import fvd, i3d
 
     t_phase = time.perf_counter()
-    lines = {}
     for label, fn, argv, want in evals_steps(tmp):
         probe.reset()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        out, launches, routes = count_launches(torch, kernels, lambda: fn(argv))
+        out, launches, routes = count_launches(torch, lambda: fn(argv))
         wall = time.perf_counter() - t0
         expect(launches, want, label)
         held = probe.hold()
@@ -2715,7 +2575,6 @@ def run_evals_phase(torch, kernels, card: str, tmp: str, probe) -> dict:
         if bad:
             raise AssertionError(f"{label}: non-finite {bad}")
         log("evals run: " + json.dumps(line))
-        lines[label] = line
         if label == "train_fvd_extractor caterv2":
             extract, prov, dim = fvd.resolve_extractor(
                 "CATER-GEN-v1", 4, extractor_dir=os.path.join(tmp, "fvdx_cater"))
@@ -2732,7 +2591,6 @@ def run_evals_phase(torch, kernels, card: str, tmp: str, probe) -> dict:
             else:
                 raise AssertionError("resolve_extractor took a CATER trunk for MovingMNIST")
     log(f"evals phase took {time.perf_counter() - t_phase:.1f} s")
-    return lines
 
 
 # ---- the probes phase -------------------------------------------------------
@@ -2753,9 +2611,9 @@ def probe_steps(tmp: str) -> list:
 
     single, double = (os.path.join(tmp, name) for name in PROBE_RUNS)
     data = ["--num-train", "64", "--num-val", "16", "--device", "cuda"]  # the chains'
-    forward = {"vq_nearest": 1, "axial_slot_attention": 3 * 4, **mlp_launches(forwards=3)}
-    generate = {"vq_nearest": 1, "axial_slot_attention": 4 * 16,
-                "cached_slot_attention": 2 * 16, **mlp_launches(cached=[16])}
+    forward = {"vq": 1, "axial": 3 * 4, **mlp_launches(forwards=3)}
+    generate = {"vq": 1, "axial": 4 * 16,
+                "cached": 2 * 16, **mlp_launches(cached=[16])}
     return [
         ("probe_text_sensitivity single", probe_text_sensitivity.main,
          ["--dataset", "single", "--run", single, "--videos", "16"] + data, forward),
@@ -2768,22 +2626,20 @@ def probe_steps(tmp: str) -> list:
     ]
 
 
-def run_probes_phase(torch, kernels, card: str, tmp: str, probe) -> dict:
+def run_probes_phase(torch, card: str, tmp: str, probe) -> None:
     """The three probes through their ``main`` on the chains' runs in
     ``tmp``: each call's launches must be ``probe_steps``', every kernel
     launch at a new shape must hold against its plain version
     (``E2eProbe.hold``), and every number of its result must be finite but
     the agreement fractions (nan over no counted case, as the probes define
-    them). A line per probe (wall s, launches, held, the result) -> {label:
-    line}."""
+    them). A line per probe (wall s, launches, held, the result)."""
     t_phase = time.perf_counter()
-    lines = {}
     for label, fn, argv, want in probe_steps(tmp):
         probe.reset()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        out, launches, routes = count_launches(torch, kernels, lambda: fn(argv))
+        out, launches, routes = count_launches(torch, lambda: fn(argv))
         wall = time.perf_counter() - t0
         expect(launches, want, label)
         held = probe.hold()
@@ -2799,9 +2655,7 @@ def run_probes_phase(torch, kernels, card: str, tmp: str, probe) -> dict:
                 "launches": {k: v for k, v in launches.items() if v}, "vq_variants": routes,
                 "held": held, "result": out}
         log("probes run: " + json.dumps(line))
-        lines[label] = line
     log(f"probes phase took {time.perf_counter() - t_phase:.1f} s")
-    return lines
 
 
 # ---- the diagnostics phase --------------------------------------------------
@@ -2841,8 +2695,8 @@ def diag_steps(tmp: str) -> list:
     length = 10
 
     def generate(forwards: int) -> dict:  # teacher-forced forwards + one cached generate
-        return {"axial_slot_attention": 4 * forwards + 4 * length,
-                "cached_slot_attention": 2 * length,
+        return {"axial": 4 * forwards + 4 * length,
+                "cached": 2 * length,
                 **mlp_launches(forwards=forwards, cached=[length])}
 
     kl_data = ["--num-train", "16", "--num-val", "8", "--device", "cuda"]  # the chain's
@@ -2850,17 +2704,17 @@ def diag_steps(tmp: str) -> list:
     return [
         ("diag_ar_drift", diag_ar_drift.main,
          ["--run", cater, "--dataset", "caterv1", "--num-train", "16", "--num-val", "8",
-          "--device", "cuda"], {"vq_nearest": 1, **generate(1)},
+          "--device", "cuda"], {"vq": 1, **generate(1)},
          os.path.join(cater, "diag_ar_drift.json")),
         ("diag_recon_bound", diag_recon_bound.main, ["--run", cater, "--device", "cuda"],
-         {"vq_nearest": 3 + 8}, os.path.join(cater, "diag_recon_bound.json")),
+         {"vq": 3 + 8}, os.path.join(cater, "diag_recon_bound.json")),
         ("diag_magep_semantic", diag_magep_semantic.main, ["--run", cater_kl] + kl_data,
          generate(2), os.path.join(cater_kl, "diag_magep_semantic.json")),
         ("diag_magep_drift", diag_magep_drift.main, ["--run", cater_kl] + kl_data,
          generate(1), os.path.join(cater_kl, "diag_magep_drift.json")),
         ("eval_mnist2_ceiling", eval_mnist2_ceiling.main,
          ["--run", mnist2, "--num-train", "64", "--num-val", "16", "--device", "cuda"],
-         {"vq_nearest": 2 + mnist2_chunks}, os.path.join(mnist2, "e2e_metrics.json")),
+         {"vq": 2 + mnist2_chunks}, os.path.join(mnist2, "e2e_metrics.json")),
     ]
 
 
@@ -2875,7 +2729,7 @@ def without_split_accuracies(value):
     return value
 
 
-def run_diags_phase(torch, kernels, card: str, tmp: str, probe) -> dict:
+def run_diags_phase(torch, card: str, tmp: str, probe) -> None:
     """The five run diagnostics through their ``main`` on the chains' runs in
     ``tmp``: each call's launches must be ``diag_steps``', every kernel
     launch at a new shape must hold against its plain version
@@ -2884,15 +2738,14 @@ def run_diags_phase(torch, kernels, card: str, tmp: str, probe) -> dict:
     two records the last lines of ``e2e_metrics.json``), and every number in
     it must be finite but the accuracies over moving or static tokens (nan
     over an empty split, as JAX's script gives them). A line per tool (wall
-    s, launches, held, the report's headline numbers) -> {label: line}."""
+    s, launches, held, the report's headline numbers)."""
     t_phase = time.perf_counter()
-    lines = {}
     for label, fn, argv, want, report in diag_steps(tmp):
         probe.reset()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        out, launches, routes = count_launches(torch, kernels, lambda: fn(argv))
+        out, launches, routes = count_launches(torch, lambda: fn(argv))
         wall = time.perf_counter() - t0
         expect(launches, want, label)
         held = probe.hold()
@@ -2919,9 +2772,7 @@ def run_diags_phase(torch, kernels, card: str, tmp: str, probe) -> dict:
                 "held": held, "report": os.path.relpath(report, tmp),
                 "headline": {k: out[k] for k in DIAG_HEADLINES[label]}}
         log("diags run: " + json.dumps(line))
-        lines[label] = line
     log(f"diagnostics phase took {time.perf_counter() - t_phase:.1f} s")
-    return lines
 
 
 # ---- the rest of the package: BERT head, spectral norm, profiling, parallel -----
@@ -2930,8 +2781,8 @@ def run_diags_phase(torch, kernels, card: str, tmp: str, probe) -> dict:
 BERT_BASE = {"vocab_size": 30522, "hidden_size": 768, "num_hidden_layers": 12,
              "num_attention_heads": 12, "intermediate_size": 3072,
              "max_position_embeddings": 512, "type_vocab_size": 2}
-MAIN_PATH_LAUNCHES = {"vq_nearest": 1, "axial_slot_attention": 4 * FRAMES,
-                      "cached_slot_attention": 2 * FRAMES, "vq_decode_tail": 1,
+MAIN_PATH_LAUNCHES = {"vq": 1, "axial": 4 * FRAMES,
+                      "cached": 2 * FRAMES, "vq_tail": 1,
                       **mlp_launches(cached=[FRAMES])}
 SPECTRAL_WIDTH, SPECTRAL_RTOL = 128, 1e-4
 
@@ -2971,13 +2822,13 @@ def bert_ids(torch, np, device: str, dtype) -> tuple:
     return lat0.cpu(), ids.cpu()
 
 
-def run_bert_phase(torch, np, kernels, card: str) -> dict:
+def run_bert_phase(torch, np, card: str) -> None:
     """The BERT text head at full width: the main path's generate (batch 32,
     16 frames, bf16) with its launches held to the main path's counts and
     each kernel launch held against its plain version; frames/s (median of
     3), the text encoder's ms (CUDA events) and peak memory; then in f32 at
     batch 2 the card's ids against the CPU's (read against an f64 CPU run
-    where they differ) -> the line."""
+    where they differ)."""
     pipe = bert_pipeline("cuda")
     head = pipe.core.text_encoder
     n_params = sum(p.numel() for p in head.parameters())
@@ -2988,8 +2839,7 @@ def run_bert_phase(torch, np, kernels, card: str) -> dict:
     with E2eProbe(torch) as probe:
         probe.reset()
         video, launches, routes = count_launches(
-            torch, kernels, lambda: pipe.generate(batch, generator=gen.manual_seed(1),
-                                                  cached=True))
+            torch, lambda: pipe.generate(batch, generator=gen.manual_seed(1), cached=True))
         held = probe.hold()
     expect(launches, MAIN_PATH_LAUNCHES, "BERT-head generate")
     if tuple(video.shape) != (BATCH, FRAMES, RES, RES, 3) or not bool(
@@ -3027,7 +2877,6 @@ def run_bert_phase(torch, np, kernels, card: str) -> dict:
         if line["f64_ids_equal"]["card"] < line["f64_ids_equal"]["cpu"]:
             raise AssertionError(f"BERT-head f32 ids: {line}")
     log("BERT-head generate: " + json.dumps(line))
-    return line
 
 
 def run_spectral_check(torch, card: str) -> dict:
@@ -3073,24 +2922,12 @@ def run_spectral_check(torch, card: str) -> dict:
     return line
 
 
-def busy_share(events: list) -> float:
-    """The share of the span of ``events`` (Chrome trace kernel events, ts
-    and dur in us) during which some kernel ran."""
-    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events)
-    busy, end = 0.0, spans[0][0]
-    for a, b in spans:
-        busy += max(0.0, b - max(a, end))
-        end = max(end, b)
-    return busy / (end - spans[0][0])
-
-
-def run_profiling_check(torch, np, build_pipeline, kernels, card: str) -> dict:
+def run_profiling_check(torch, np, build_pipeline, card: str) -> dict:
     """``profile_trace`` around one MAGE generate (the main path's shapes,
     bf16): the trace must be non-empty JSON whose kernel events name the
     vq, axial and cached-attention kernels, with the launches of the main
-    path; the device's busy share of the traced kernels' span and each port
-    kernel's summed device time are read from it. Then ``cost_analysis`` of
-    one ``decode_slot`` at the main shapes beside ``mage_decoder_flops``."""
+    path. Then ``cost_analysis`` of one ``decode_slot`` at the main shapes
+    beside ``mage_decoder_flops``."""
     import tempfile
 
     from mage_tpu_torch.utils import profiling
@@ -3103,8 +2940,7 @@ def run_profiling_check(torch, np, build_pipeline, kernels, card: str) -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         with profiling.profile_trace(tmp):
             _, launches, _ = count_launches(
-                torch, kernels, lambda: pipe.generate(batch, generator=gen.manual_seed(1),
-                                                      cached=True))
+                torch, lambda: pipe.generate(batch, generator=gen.manual_seed(1), cached=True))
         path = os.path.join(tmp, profiling.TRACE_FILE)
         size = os.path.getsize(path)
         with open(path) as fp:
@@ -3117,15 +2953,14 @@ def run_profiling_check(torch, np, build_pipeline, kernels, card: str) -> dict:
         if not mine:
             raise AssertionError(f"profile_trace: no {tag!r} kernel among "
                                  f"{sorted({e['name'][:60] for e in kern})[:20]}")
-        ours[tag] = {"events": len(mine), "device_ms": sum(e["dur"] for e in mine) / 1e3}
+        ours[tag] = len(mine)
     gm = pipe.core.generate_model
     cache = gm.init_cache(BATCH, 16, 16, torch.bfloat16, "cuda")
     slot = torch.randn(BATCH, 16, 16, 512, device="cuda", dtype=torch.bfloat16)
     with torch.no_grad():
         counted = profiling.cost_analysis(gm.decode_slot, slot, 3, cache)
     line = {"card": card, "trace_bytes": size, "events": len(events), "kernel_events": len(kern),
-            "kernels_device_ms": sum(e["dur"] for e in kern) / 1e3,
-            "busy_share": busy_share(kern), "port_kernels": ours,
+            "port_kernels": ours,
             # FlopCounterMode counts 2 FLOPs per multiply-add and skips the
             # ctypes kernels; the JAX formula counts multiply-adds
             "decode_slot_counted_flops": counted["flops"],
@@ -3139,7 +2974,7 @@ def run_profiling_check(torch, np, build_pipeline, kernels, card: str) -> dict:
     return line
 
 
-def run_parallel_check(torch, np, build_pipeline, kernels, card: str) -> dict:
+def run_parallel_check(torch, np, build_pipeline, card: str) -> dict:
     """``MageTrainer`` on a 1-rank NCCL mesh: MAGE at full width (f32, batch
     4, 16 frames, dropout 0), 3 steps of the plain trainer, of the mesh
     trainer with replicated parameters (DDP's all-reduce) and with ``fsdp:
@@ -3179,12 +3014,12 @@ def run_parallel_check(torch, np, build_pipeline, kernels, card: str) -> dict:
                     start = torch.cuda.Event(enable_timing=True)
                     end = torch.cuda.Event(enable_timing=True)
                     start.record()
-                    terms, launches, _ = count_launches(torch, kernels, lambda: trainer.train_step(
+                    terms, launches, _ = count_launches(torch, lambda: trainer.train_step(
                         shard_batch(b, mesh) if on_mesh else b, TRAIN_LR, trainer.beta,
                         pipe.alpha, generator=gen))
                     end.record()
                     torch.cuda.synchronize()
-                    expect(launches, {"vq_nearest": 1, **mlp_launches(steps=1)},
+                    expect(launches, {"vq": 1, **mlp_launches(steps=1)},
                            f"{label} train step")
                     steps.append({k: float(v) for k, v in terms.items()})
                     times.append(start.elapsed_time(end) / 1e3)
@@ -3273,41 +3108,27 @@ def main() -> int:
                 check_vq_tail(torch, F, vt, gen)]
         gelu_row, gelu_train = check_quick_gelu(torch, qg, gen)
         rows.append(gelu_row)
-        kernels = {"vq_nearest": vq.KERNEL, "axial_slot_attention": ax.KERNEL,
-                   "cached_slot_attention": ca.KERNEL, "gn_silu_conv3x3": gc.KERNEL,
-                   "gn_stats": gc.KERNEL_STATS, "axial_block_fused": ax.KERNEL_BLOCK,
-                   "vq_decode_tail": vt.KERNEL, "quick_gelu": qg.KERNEL,
-                   "quick_gelu_bwd": qg.KERNEL_BWD}
         mlps = mlp_launches(cached=[FRAMES])
-        mage, mage_path = run_main_path(torch, np, build_pipeline, kernels, smi, want={
-            "vq_nearest": 1, "axial_slot_attention": 4 * FRAMES,
-            "cached_slot_attention": 2 * FRAMES, "gn_silu_conv3x3": 0, "gn_stats": 0,
-            "axial_block_fused": 0, "vq_decode_tail": 1, **mlps})
+        mage = run_main_path(torch, np, build_pipeline, want={
+            "vq": 1, "axial": 4 * FRAMES, "cached": 2 * FRAMES, "vq_tail": 1, **mlps})
         run_reference_check(torch, np, build_pipeline)
         n_gn = sum(GN_CONV_SITES.values()) * (BATCH * (FRAMES - 1) // KL_CHUNK)
-        magep, _ = run_main_path(torch, np, build_pipeline, kernels, smi,
-                                 "config/mage+_caterv2.yaml", want={
-                                     "vq_nearest": 0, "axial_slot_attention": 4 * FRAMES,
-                                     "cached_slot_attention": 2 * FRAMES,
-                                     "gn_silu_conv3x3": n_gn, "gn_stats": n_gn,
-                                     "axial_block_fused": 0, **mlps})
+        magep = run_main_path(torch, np, build_pipeline, "config/mage+_caterv2.yaml", want={
+            "axial": 4 * FRAMES, "cached": 2 * FRAMES, "gn_conv": n_gn, "gn_stats": n_gn,
+            **mlps})
         run_magep_reference_check(torch, np, build_pipeline)
         # the fused blocks keep their own QuickGELU: the temporal blocks' MLPs remain
-        fused, fused_path = run_main_path(torch, np, build_pipeline, kernels, smi, want={
-            "vq_nearest": 1, "axial_slot_attention": 0,
-            "cached_slot_attention": 2 * FRAMES, "gn_silu_conv3x3": 0, "gn_stats": 0,
-            "axial_block_fused": 4 * FRAMES, "vq_decode_tail": 1,
+        fused = run_main_path(torch, np, build_pipeline, want={
+            "vq": 1, "cached": 2 * FRAMES, "axial_block": 4 * FRAMES, "vq_tail": 1,
             "quick_gelu": DEC_BLOCKS // 3 * FRAMES + MA_BLOCKS}, spatial_attn="fusedblock")
-        log("MAGE fusedblock beside flat: " + json.dumps({
-            key: {"flat": mage_path[key], "fusedblock": fused_path[key]}
-            for key in ("generated_frames_per_s", "generate_s", "peak_mem_gib", "stage_ms")}))
         run_reference_check(torch, np, build_pipeline, spatial_attn="fusedblock")
         run_magep_reference_check(torch, np, build_pipeline, spatial_attn="fusedblock")
         run_magep_reference_check(torch, np, build_pipeline, spatial_attn="fusedblock",
                                   cached=False, length=4)
-        paths = {"gn_silu_conv3x3": magep, "gn_stats": magep, "axial_block_fused": fused}
+        paths = {"gn_conv": magep, "gn_stats": magep, "axial_block": fused}
         for row in rows:  # each kernel's launches on the path that runs it
-            row["launches"] = paths.get(row["name"], mage)[row["name"]]
+            launcher = LAUNCHER[row["name"]]
+            row["launches"] = paths.get(launcher, mage)[launcher]
             row.setdefault("conv_only_ms", None)
             row.setdefault("unfused_ms", None)
 
@@ -3317,66 +3138,52 @@ def main() -> int:
         train_shapes["quick_gelu"] = gelu_train
         torch.backends.cudnn.allow_tf32 = True
         t0 = time.perf_counter()
-        per_train_step, per_eval_step, _ = run_training(torch, build_pipeline, kernels, smi)
+        per_train_step, per_eval_step = run_training(torch, build_pipeline)
         magep_batch = TRAIN_BATCH if time.perf_counter() - t_start < 300 else 4
         if magep_batch != TRAIN_BATCH:
             log(f"MAGE+ training at batch {magep_batch}: the smoke has run "
                 f"{time.perf_counter() - t_start:.0f} s")
-        run_magep_training(torch, build_pipeline, kernels, magep_batch)
+        run_magep_training(torch, build_pipeline, magep_batch)
         log(f"training phases took {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
         stage1_vq = check_stage1_vq(torch, vq, gen)
         for name in ("f8", "f4"):
-            run_vqvae_training(torch, kernels, name, smi)
-        run_klae_training(torch, kernels, smi)
+            run_vqvae_training(torch, name, smi)
+        run_klae_training(torch, smi)
         log(f"stage-1 training phases took {time.perf_counter() - t0:.1f} s")
         torch.backends.cudnn.allow_tf32 = False
-        run_train_reference_check(torch, np, build_pipeline, kernels)
+        run_train_reference_check(torch, np, build_pipeline)
         t0 = time.perf_counter()
-        run_stage1_reference_check(torch, kernels)
+        run_stage1_reference_check(torch)
         log(f"stage-1 f32 GPU-vs-CPU check took {time.perf_counter() - t0:.1f} s")
-        run_cli_phase(torch, np, kernels, smi)
-        run_kvquant_phase(torch, np, build_pipeline, kernels, smi)
-        e2e_lines, evals_lines, probe_lines, diag_lines = run_e2e_phase(torch, kernels, smi)
+        run_cli_phase(torch, np, smi)
+        run_kvquant_phase(torch, np, build_pipeline, smi)
+        run_e2e_phase(torch, smi)
         t0 = time.perf_counter()
-        bert = run_bert_phase(torch, np, kernels, smi)
+        run_bert_phase(torch, np, smi)
         run_spectral_check(torch, smi)
         torch.backends.cudnn.allow_tf32 = True  # torch's default, as a user's run gets it
-        run_profiling_check(torch, np, build_pipeline, kernels, smi)
+        run_profiling_check(torch, np, build_pipeline, smi)
         torch.backends.cudnn.allow_tf32 = False
-        run_parallel_check(torch, np, build_pipeline, kernels, smi)
+        run_parallel_check(torch, np, build_pipeline, smi)
         log(f"the rest of the package took {time.perf_counter() - t0:.1f} s")
-        for row in rows:  # the chains of the e2e phase, the evals, the probes, the diags
-            row["bert_launches"] = bert["launches"].get(row["name"], 0)
-            for key, phase in (("e2e", e2e_lines), ("evals", evals_lines),
-                               ("probes", probe_lines), ("diags", diag_lines)):
-                row[f"{key}_launches"] = sum(
-                    line["launches"].get(row["name"], 0) for line in phase.values())
-                errs = [line["held"][row["name"]]["max_abs_err"] for line in phase.values()
-                        if row["name"] in line["held"]]
-                row[f"{key}_max_abs_err"] = max(errs) if errs else None
-        chains = sum(GN_CONV_SITES.values())
-        for row in rows:  # per stage-1 train step and eval step (VQ-VAE; KL-AE for gn)
-            row["stage1_launches"] = 1 if row["name"] == "vq_nearest" else 0
-            row["stage1_eval_launches"] = {"vq_nearest": 1, "gn_silu_conv3x3": chains,
-                                           "gn_stats": chains}.get(row["name"], 0)
-            for name, numbers in stage1_vq.items():
-                for key in ("ms", "plain_ms", "bound_ms"):
-                    row[f"stage1_{name}_{key}"] = (numbers[key] if row["name"] == "vq_nearest"
-                                                   else None)
-        for row in rows:  # at the training path's shapes (vq: per train step)
-            ms_bound = train_shapes.get(row["name"])
+        for row in rows:  # at the training and stage-1 shapes (vq: per train step)
+            launcher = LAUNCHER[row["name"]]
+            ms_bound = train_shapes.get(launcher)
             row["train_ms"], row["train_bound_ms"] = ms_bound or (None, None)
-            if row["name"] == "vq_nearest":
-                row["train_launches"] = per_train_step["vq_nearest"]
-            elif row["name"] == "quick_gelu":  # forward and backward launches
-                row["train_launches"] = (per_train_step["quick_gelu"]
-                                         + per_train_step["quick_gelu_bwd"])
+            if launcher == "vq":
+                row["train_launches"] = per_train_step["vq"]
+            elif launcher == "quick_gelu":  # forward and backward launches
+                row["train_launches"] = per_train_step["quick_gelu"] + per_train_step[
+                    "quick_gelu_bwd"]
             elif ms_bound is not None:
                 row["train_launches"] = per_eval_step[
-                    "fusedblock" if row["name"] == "axial_block_fused" else "flat"][row["name"]]
+                    "fusedblock" if launcher == "axial_block" else "flat"][launcher]
             else:
                 row["train_launches"] = 0
+            for name, numbers in stage1_vq.items():
+                for key in ("ms", "plain_ms", "bound_ms"):
+                    row[f"stage1_{name}_{key}"] = numbers[key] if launcher == "vq" else None
     except Exception:
         traceback.print_exc()
         return 1
@@ -3385,18 +3192,13 @@ def main() -> int:
                         for key in ("ms", "plain_ms", "bound_ms"))
     for row in rows:
         for key in ("ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err",
-                    "conv_only_ms", "unfused_ms", "train_ms", "train_bound_ms", *stage1_keys,
-                    "e2e_max_abs_err", "evals_max_abs_err", "probes_max_abs_err",
-                    "diags_max_abs_err"):
+                    "conv_only_ms", "unfused_ms", "train_ms", "train_bound_ms", *stage1_keys):
             if row[key] is not None and not math.isfinite(row[key]):
                 print(f"chip_smoke: {row['name']} {key} = {row[key]}", file=sys.stderr)
                 return 1
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "conv_only_ms", "unfused_ms",
-            "train_launches", "train_ms", "train_bound_ms", "stage1_launches",
-            "stage1_eval_launches", *stage1_keys, "e2e_launches", "e2e_max_abs_err",
-            "evals_launches", "evals_max_abs_err", "probes_launches", "probes_max_abs_err",
-            "diags_launches", "diags_max_abs_err", "bert_launches")
+            "train_launches", "train_ms", "train_bound_ms", *stage1_keys)
     print(json.dumps({"kernels": [{k: row[k] for k in keys} for row in rows]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}),

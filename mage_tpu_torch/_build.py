@@ -10,12 +10,13 @@ Each C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; :class:`Kernel` raises if that is not 0. A wrapper
 never synchronises and allocates its outputs itself with ``torch.empty``.
 Each op's launcher (the Python function that checks the inputs, allocates
-the outputs and calls the entry point) is decorated with :func:`launcher`,
-which counts its launches and their host time in ``utils.trace``.
+the outputs and calls its one entry point once) is decorated with
+:func:`launcher`, the one place a launch is counted: by launcher name, with
+its host time, in ``utils.trace``.
 
 While a CUDA graph captures (``capturing_launches``), a launch reaches no
-device: it is recorded in the capture's ``CapturedLaunches`` instead of the
-counts, and each replay of the graph credits the counts with it.
+device: it is counted in the capture's record instead, and each replay of
+the graph credits it (``credit``).
 """
 
 from __future__ import annotations
@@ -116,18 +117,12 @@ def library() -> ctypes.CDLL:
 
 
 class Kernel:
-    """One C entry point of the kernel library, with a launch count.
-
-    ``launches`` is a plain integer that grows by one each time the entry
-    point launches on the device: each call, or each replay of a CUDA graph
-    that captured the call (``CapturedLaunches.credit``); a run sets it to 0
-    to count the launches of one path.
-    """
+    """One C entry point of the kernel library: a call launches it and
+    raises on a CUDA error."""
 
     def __init__(self, symbol: str, argtypes: Sequence):
         self.symbol = symbol
         self.argtypes = list(argtypes)
-        self.launches = 0
 
     @functools.cached_property
     def _fn(self):
@@ -138,11 +133,6 @@ class Kernel:
 
     def __call__(self, *args) -> None:
         err = self._fn(*args)
-        captured = getattr(_capture, "launches", None)
-        if captured is None:
-            self.launches += 1
-        else:
-            captured.entries[self] = captured.entries.get(self, 0) + 1
         if err != 0:
             describe = library().mage_cuda_error_string
             describe.argtypes = [ctypes.c_int]
@@ -155,42 +145,33 @@ _launching = threading.local()
 _capture = threading.local()
 
 
-class CapturedLaunches:
-    """The launches a CUDA graph captured, by entry point (``entries``) and
-    by launcher (``ops``); ``credit()`` counts them as launched once, as one
-    replay of the graph launches them, with no host time of their own."""
-
-    def __init__(self):
-        self.entries: dict = {}
-        self.ops: dict = {}
-
-    def credit(self) -> None:
-        for kernel, n in self.entries.items():
-            kernel.launches += n
-        for op, n in self.ops.items():
-            trace.count_launch(op, 0, n)
-
-
 @contextlib.contextmanager
-def capturing_launches() -> Iterator[CapturedLaunches]:
-    """Inside, on this thread, every launch goes into the yielded record
-    and into no count: wrap a CUDA graph's capture, whose launches run only
-    when it replays."""
-    outer = getattr(_capture, "launches", None)
-    _capture.launches = captured = CapturedLaunches()
+def capturing_launches() -> Iterator[dict]:
+    """Inside, on this thread, every launch goes into the yielded count by
+    launcher name and into no other: wrap a CUDA graph's capture, whose
+    launches run only when it replays."""
+    outer = getattr(_capture, "record", None)
+    _capture.record = captured = {}
     try:
         yield captured
     finally:
-        _capture.launches = outer
+        _capture.record = outer
+
+
+def credit(captured: dict) -> None:
+    """Count a capture's launches as launched once, as one replay of its
+    graph launches them, with no host time of their own."""
+    for kernel, n in captured.items():
+        trace.count_launch(kernel, 0, n)
 
 
 def launcher(kernel: str):
     """Decorate an op's launcher: each call that returns counts one launch
-    of ``kernel`` with its host nanoseconds from entry to return, in the
-    innermost open span (``trace.count_launch``), or in the record of a
-    CUDA graph's capture (``capturing_launches``). A launcher called by
-    another (gn_conv's statistics pass) counts its launch with no time of
-    its own: the caller's time holds it."""
+    of ``kernel`` with its host nanoseconds from entry to return
+    (``trace.count_launch``), or in the record of a CUDA graph's capture
+    (``capturing_launches``). A launcher called by another (gn_conv's
+    statistics pass) counts its launch with no time of its own: the
+    caller's time holds it."""
 
     def wrap(fn):
         @functools.wraps(fn)
@@ -202,11 +183,11 @@ def launcher(kernel: str):
                 out = fn(*args, **kwargs)
             finally:
                 _launching.on = nested
-            captured = getattr(_capture, "launches", None)
+            captured = getattr(_capture, "record", None)
             if captured is None:
                 trace.count_launch(kernel, 0 if nested else trace.now_ns() - start)
             else:
-                captured.ops[kernel] = captured.ops.get(kernel, 0) + 1
+                captured[kernel] = captured.get(kernel, 0) + 1
             return out
 
         return call

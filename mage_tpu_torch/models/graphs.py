@@ -30,9 +30,9 @@ loop issued every operation through Python.
   its constructor set them, but for the keys the caller passes
   (``route``).
 - **Counts.** The launches made during a capture run only when the graph
-  replays: ``_build.capturing_launches`` keeps them out of the counts, and
-  each replay credits them (``_build.CapturedLaunches``) to the kernels'
-  counts and to the innermost open span.
+  replays: ``_build.capturing_launches`` keeps them out of the launch
+  record, and each replay credits them (``_build.credit``) to its totals
+  and to the innermost open span.
 
 At most ``MAX_GRAPHS`` graphs are kept for a module; the oldest goes first.
 A module's graphs go when it does.
@@ -98,7 +98,7 @@ class _State:
 
 class _Graph:
     """One captured call: static inputs, the graph, its static output and
-    the launches it replays."""
+    the launches it replays (``captured``, by launcher name)."""
 
     def __init__(self, fn: Callable, inputs: Sequence[Optional[torch.Tensor]]):
         device = inputs[0].device  # a host tensor among the others is uploaded on replay
@@ -106,7 +106,7 @@ class _Graph:
                                                                device=device)
                             for t in inputs)
         self.graph = torch.cuda.CUDAGraph()
-        with _build.capturing_launches() as self.launches, torch.cuda.graph(self.graph):
+        with _build.capturing_launches() as self.captured, torch.cuda.graph(self.graph):
             self.output = fn(*self.inputs)
         # the capture stream's cuBLAS workspace was allocated in the graph's
         # pool and stays mapped there; dropping the map's hold on it keeps it
@@ -118,7 +118,7 @@ class _Graph:
             if buf is not None:
                 buf.copy_(t)
         self.graph.replay()
-        self.launches.credit()
+        _build.credit(self.captured)
         return self.output.clone()
 
 

@@ -571,8 +571,7 @@ class MAGECore(nn.Module):
                         speed: Optional[torch.Tensor] = None,
                         video_noise: Optional[torch.Tensor] = None,
                         generator: Optional[torch.Generator] = None,
-                        temperature: float = 0.0, top_k: int = 0,
-                        graph: bool = True) -> torch.Tensor:
+                        temperature: float = 0.0, top_k: int = 0) -> torch.Tensor:
         """KV-cached generation: one single-slot decoder pass per frame.
         ``temperature`` > 0 samples ids from softmax(logits / temperature),
         restricted to the ``top_k`` largest logits when 0 < top_k < K, with
@@ -585,11 +584,10 @@ class MAGECore(nn.Module):
         frames, as one CUDA graph for its shape (``models/graphs.py``): the
         first call of a shape runs the eager loop, the second captures it,
         later ones replay it, bit-equal to the loop. The prior sample, when
-        not given, is drawn before the replay as the loop draws it.
-        ``graph=False`` runs the eager loop."""
+        not given, is drawn before the replay as the loop draws it."""
         if temperature > 0 and not self.use_cids:
             raise ValueError("temperature sampling only applies to the discrete head")
-        if not (graph and temperature == 0 and self.graphable(latents0)):
+        if not (temperature == 0 and self.graphable(latents0)):
             return self._cached_loop(latents0, text, speed, video_noise, generator,
                                      temperature, top_k)
         if not self.randomness:

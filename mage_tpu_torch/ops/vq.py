@@ -14,8 +14,7 @@ gives it, and ``"simt"`` (f32 FMAs in sequence, ids those of an f32
 computation) for f32 and any other shape. ``nearest_codebook_indices``
 launches it without a codes buffer, so it writes ids only;
 ``nearest_with_codes`` also has it gather the codes. Both are one entry
-point and one launch count (``KERNEL``); ``ROUTE_LAUNCHES`` counts the
-launches of each variant.
+point (``KERNEL``) and one launcher (``vq``).
 
 ``vq_straight_through`` is the VQ-VAE training forward's quantizer, a
 ``torch.autograd.Function`` over ``nearest_with_codes`` (the kernel with
@@ -39,7 +38,6 @@ KERNEL = _build.Kernel(
     [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
 )
 ROUTES = ("simt", "wgmma")  # position = the C entry's route code
-ROUTE_LAUNCHES = dict.fromkeys(ROUTES, 0)
 
 
 def _vq_plain(z_flat: torch.Tensor, codebook: torch.Tensor):
@@ -82,7 +80,6 @@ def _vq_cuda(z_flat: torch.Tensor, codebook: torch.Tensor, with_codes: bool):
            None if keys is None else keys.data_ptr(),
            idx.data_ptr(), None if codes is None else codes.data_ptr(), n, k, d,
            _build.dtype_code(z_flat), ROUTES.index(variant), _build.stream_ptr(dev))
-    ROUTE_LAUNCHES[variant] += 1
     return idx, codes
 
 

@@ -1,4 +1,4 @@
-"""Spans and launch counters of the program's main paths, kept in memory.
+"""Spans and the launch record of the program's main paths, kept in memory.
 
 ``span(name, **attrs)`` brackets a stage of the work. Spans nest through a
 per-thread stack; the outermost open span of a thread is a root, and every
@@ -10,7 +10,9 @@ that ``records()`` reads and ``clear()`` empties.
 Always on, at a few clock reads a span: the host start and end, the span's
 parent and root, and the hand-written kernels launched while it was the
 innermost open span, each with its host time from the launcher's entry to
-its return (``count_launch``, called by ``_build.launcher``).
+its return (``count_launch``, called by ``_build.launcher``). The same
+launches, on every thread and whether or not a span is open, add up in
+process-wide totals by launcher name (``launch_counts``).
 
 On demand, while a ``torch.profiler`` runs or inside ``recording()``, a
 span also records a pair of CUDA events on the current stream (its device
@@ -64,6 +66,7 @@ _ring: collections.deque = collections.deque(maxlen=CAPACITY)
 _ids = itertools.count(1)
 _local = threading.local()
 _forced = 0  # open ``recording()`` blocks
+_totals: dict = {}  # launches by launcher name, never reset
 
 
 def _stack() -> list:
@@ -82,13 +85,13 @@ class Span:
     """One span: a context manager while open, a record once closed."""
 
     __slots__ = ("name", "attrs", "timed", "id", "parent", "root", "start_ns", "end_ns",
-                 "launches", "launch_ns", "device_ms", "_events", "_range")
+                 "launched", "launch_ns", "device_ms", "_events", "_range")
 
     def __init__(self, name: str, attrs: dict, timed: bool = False):
         self.name = name
         self.attrs = attrs
         self.timed = timed
-        self.launches: dict = {}
+        self.launched: dict = {}
         self.launch_ns = 0
         self.device_ms: Optional[float] = None
         self._events = self._range = None
@@ -127,7 +130,7 @@ class Span:
         return {"name": self.name, "attrs": self.attrs, "timed": self.timed, "id": self.id,
                 "parent": self.parent, "root": self.root, "start_ns": self.start_ns,
                 "end_ns": self.end_ns, "host_ms": (self.end_ns - self.start_ns) * 1e-6,
-                "launches": dict(self.launches), "launch_ns": self.launch_ns,
+                "launches": dict(self.launched), "launch_ns": self.launch_ns,
                 "device_ms": self.device_ms}
 
 
@@ -152,14 +155,22 @@ def recording() -> Iterator[None]:
 
 def count_launch(kernel: str, host_ns: int, launches: int = 1) -> None:
     """``launches`` launches of ``kernel`` whose launchers took ``host_ns``
-    of host time in all, added to this thread's innermost open span (none
-    open: not counted). A CUDA graph's replay adds the launches it
-    captured with no host time."""
+    of host time in all, added to the totals and to this thread's innermost
+    open span (none open: the totals only). A CUDA graph's replay adds the
+    launches it captured with no host time."""
+    _totals[kernel] = _totals.get(kernel, 0) + launches
     stack = _stack()
     if stack:
         top = stack[-1]
-        top.launches[kernel] = top.launches.get(kernel, 0) + launches
+        top.launched[kernel] = top.launched.get(kernel, 0) + launches
         top.launch_ns += host_ns
+
+
+def launch_counts() -> dict:
+    """A copy of the launches counted since the process started, by launcher
+    name, on every thread (autograd's backward thread too): the launches
+    between two reads are their difference."""
+    return dict(_totals)
 
 
 def records() -> list:

@@ -29,7 +29,7 @@ from torch import nn
 
 from mage_tpu_torch import _build
 from mage_tpu_torch.models import graphs, mage
-from mage_tpu_torch.models.layers import TransformerTextEncoder
+from mage_tpu_torch.models.layers import MAEncoder, TransformerTextEncoder
 from mage_tpu_torch.models.pipeline import init_weights
 from mage_tpu_torch.utils import trace
 
@@ -48,6 +48,13 @@ def _core(use_cids=True, kv_quant=None):
             w = core.generate_model.out[2].weight
             w.copy_(torch.randn(w.shape, generator=torch.Generator().manual_seed(1)) * 0.02)
     return core.eval()
+
+
+def _eager(core, *args, **kwargs):
+    """The cached sampler's eager loop, under ``no_grad`` as
+    ``generate_cached`` runs it: what a replay is held to."""
+    with torch.no_grad():
+        return core._cached_loop(*args, **kwargs)
 
 
 def _inputs(core, batch=B, seed=0):
@@ -77,6 +84,10 @@ class _Foreign(TransformerTextEncoder):
     """A config-chosen text encoder from outside the port."""
 
 
+class _ForeignMA(MAEncoder):
+    """A config-chosen motion-anchor encoder from outside the port."""
+
+
 def _train_mode(core):
     core.train()
 
@@ -89,13 +100,17 @@ def _foreign_text_encoder(core):
     core.text_encoder.__class__ = _Foreign
 
 
+def _foreign_ma_encoder(core):
+    core.ma_encoder.__class__ = _ForeignMA
+
+
 ROUTING = [  # (case, change to the core, generate_cached's keywords, goes to a graph)
     ("greedy", None, {}, True),
-    ("graph_false", None, {"graph": False}, False),
     ("temperature", None, {"temperature": 0.7}, False),
     ("train_mode", _train_mode, {}, False),
     ("kv_int8", _kv_int8, {}, False),
     ("foreign_text_encoder", _foreign_text_encoder, {}, False),
+    ("foreign_ma_encoder", _foreign_ma_encoder, {}, False),
 ]
 
 
@@ -113,8 +128,7 @@ def test_which_calls_replay_a_graph(monkeypatch, use_cids, case, change, kwargs,
         change(core)
     was_training = core.training
     lat0, text, speed = _inputs(core)
-    want = core.generate_cached(lat0, text, speed, generator=torch.Generator().manual_seed(3),
-                                graph=False, **{k: v for k, v in kwargs.items() if k != "graph"})
+    want = _eager(core, lat0, text, speed, generator=torch.Generator().manual_seed(3), **kwargs)
     routed_calls = _Routed()
     monkeypatch.setattr(graphs, "call", routed_calls)
     monkeypatch.setattr(mage, "on_card", lambda t: True)
@@ -136,7 +150,7 @@ def test_the_cpu_runs_the_eager_loop(use_cids):
     core = _core(use_cids)
     lat0, text, speed = _inputs(core)
     noise = torch.randn(B, R, R, 64, generator=torch.Generator().manual_seed(4))
-    want = core.generate_cached(lat0, text, speed, video_noise=noise, graph=False)
+    want = _eager(core, lat0, text, speed, video_noise=noise)
     for _ in range(3):
         assert torch.equal(core.generate_cached(lat0, text, speed, video_noise=noise), want)
     assert core not in graphs._STATES
@@ -205,7 +219,7 @@ def test_a_graph_lives_while_the_storage_does(fake_graphs, change, kept):
         assert torch.equal(run(), before)
     assert len(fake_graphs) == 1 and fake_graphs[0].replays == 2
     change(core)
-    want = core.generate_cached(lat0, text, speed, video_noise=noise, graph=False)
+    want = _eager(core, lat0, text, speed, video_noise=noise)
     assert torch.equal(run(), want)
     if kept:
         assert len(fake_graphs) == 1 and fake_graphs[0].replays == 3
@@ -234,30 +248,31 @@ def test_each_shape_and_route_has_its_graph_and_the_oldest_goes(fake_graphs):
 
 
 def test_a_capture_keeps_its_launches_out_of_the_counts_until_a_replay():
-    """Launches made while a graph captures count nowhere; each
-    ``credit()`` adds them once to the entry points' counts and to the
-    innermost open span, with no host time."""
-    kernel = _build.Kernel("mage_fake_entry", [])
-    kernel.__dict__["_fn"] = lambda *args: 0  # no library needed
-
+    """Launches made while a graph captures count nowhere but in the
+    capture's record; each ``credit`` adds them once to the totals and to
+    the innermost open span, with no host time."""
     @_build.launcher("fake")
     def launch():
-        kernel()
+        pass
 
+    def fakes():
+        return trace.launch_counts().get("fake", 0)
+
+    before = fakes()
     trace.clear()
     with trace.span("outer"):
         with _build.capturing_launches() as captured:
             launch()
             launch()
-    assert kernel.launches == 0 and trace.records()[-1]["launches"] == {}
-    assert captured.entries == {kernel: 2} and captured.ops == {"fake": 2}
+    assert fakes() == before and trace.records()[-1]["launches"] == {}
+    assert captured == {"fake": 2}
     with trace.span("replays"):
-        captured.credit()
-        captured.credit()
+        _build.credit(captured)
+        _build.credit(captured)
     rec = trace.records()[-1]
-    assert kernel.launches == 4 and rec["launches"] == {"fake": 4} and rec["launch_ns"] == 0
+    assert fakes() == before + 4 and rec["launches"] == {"fake": 4} and rec["launch_ns"] == 0
     launch()  # outside a capture: counted as before
-    assert kernel.launches == 5
+    assert fakes() == before + 5
     trace.clear()
 
 
@@ -319,14 +334,13 @@ def test_replays_are_bit_equal_to_the_eager_loop(card_pipes, name, batch, route)
     try:
         core = pipe.core
         args = _card_inputs(pipe, batch, seed=batch)
-        want = core.generate_cached(*args[:3], video_noise=args[3], graph=False)
+        want = _eager(core, *args[:3], video_noise=args[3])
         outs = [core.generate_cached(*args[:3], video_noise=args[3]) for _ in range(4)]
         assert len(graphs._STATES[core].graphs) >= 1
         for out in outs:
             assert out.dtype == want.dtype and torch.equal(out, want)
         # the prior drawn before the replay, from the generator, as the loop draws it
-        want = core.generate_cached(*args[:3], generator=torch.Generator("cuda").manual_seed(9),
-                                    graph=False)
+        want = _eager(core, *args[:3], generator=torch.Generator("cuda").manual_seed(9))
         got = core.generate_cached(*args[:3], generator=torch.Generator("cuda").manual_seed(9))
         assert torch.equal(got, want)
     finally:
@@ -347,9 +361,9 @@ def test_replays_are_bit_equal_to_the_eager_loop_on_the_plain_quick_gelu(card_pi
     args = _card_inputs(pipe, CELL_B, seed=21)
     outs = [core.generate_cached(*args[:3], video_noise=args[3]) for _ in range(3)]
     monkeypatch.setattr(layers, "quick_gelu", qg.quick_gelu_plain)
-    launches = qg.KERNEL.launches
-    want = core.generate_cached(*args[:3], video_noise=args[3], graph=False)
-    assert qg.KERNEL.launches == launches  # the loop ran the chain
+    launches = trace.launch_counts().get("quick_gelu", 0)
+    want = _eager(core, *args[:3], video_noise=args[3])
+    assert trace.launch_counts().get("quick_gelu", 0) == launches  # the loop ran the chain
     for out in outs:
         assert torch.equal(out, want)
 
@@ -359,7 +373,7 @@ def test_successive_calls_keep_their_own_outputs(card_pipes, name):
     pipe = card_pipes[name]
     core = pipe.core
     a, b = _card_inputs(pipe, CELL_B, seed=11), _card_inputs(pipe, CELL_B, seed=12)
-    want = [core.generate_cached(*x[:3], video_noise=x[3], graph=False) for x in (a, b)]
+    want = [_eager(core, *x[:3], video_noise=x[3]) for x in (a, b)]
     for _ in range(2):  # the key's eager call and its capture
         core.generate_cached(*a[:3], video_noise=a[3])
     got_a = core.generate_cached(*a[:3], video_noise=a[3])
@@ -380,7 +394,7 @@ def test_an_in_place_reload_moves_the_output_as_the_eager_loops(card_pipes):
         core.load_state_dict({k: v + 0.05 * torch.randn(v.shape, generator=gen, device="cuda"
                                                         ).to(v.dtype)
                               if v.is_floating_point() else v for k, v in saved.items()})
-        want = core.generate_cached(*args[:3], video_noise=args[3], graph=False)
+        want = _eager(core, *args[:3], video_noise=args[3])
         got = core.generate_cached(*args[:3], video_noise=args[3])
         assert len(graphs._STATES[core].graphs) >= 1  # the graph was kept
         assert torch.equal(got, want) and not torch.equal(got, old)
@@ -420,19 +434,16 @@ def test_outside_a_replay_only_the_static_buffers_stay_allocated(card_pipes, nam
 
 
 def test_a_replayed_call_counts_the_eager_loops_launches(card_pipes):
-    """Kernel counts and the spans' launch counts of one call: the eager
+    """The launch totals and the spans' launch counts of one call: the eager
     loop's, the capturing call's (its capture counts none, its replay all)
     and a replay's are the same (L=10: 40 axial, 20 cached, 61 QuickGELU:
     six blocks a slot and the MA encoder's)."""
-    from mage_tpu_torch.ops import axial_attention as ax
-    from mage_tpu_torch.ops import cached_attention as ca
-    from mage_tpu_torch.ops import quick_gelu as qg
-
     pipe = card_pipes["mage"]
     core = pipe.core
     args = _card_inputs(pipe, 7, seed=7)
+    kernels = ("axial", "cached", "quick_gelu")
     for _ in range(3):  # eager, capture and replay, replay
-        before = ax.KERNEL.launches, ca.KERNEL.launches, qg.KERNEL.launches
+        before = trace.launch_counts()
         trace.clear()
         with trace.span("probe"):
             core.generate_cached(*args[:3], video_noise=args[3])
@@ -441,8 +452,8 @@ def test_a_replayed_call_counts_the_eager_loops_launches(card_pipes):
         for s in spans:
             for k, n in s["launches"].items():
                 totals[k] = totals.get(k, 0) + n
-        assert (ax.KERNEL.launches - before[0], ca.KERNEL.launches - before[1],
-                qg.KERNEL.launches - before[2]) == (40, 20, 61)
+        after = trace.launch_counts()
+        assert tuple(after.get(k, 0) - before.get(k, 0) for k in kernels) == (40, 20, 61)
         assert totals == {"axial": 40, "cached": 20, "quick_gelu": 61}
     assert spans[-1]["name"] == "probe" and spans[-1]["launches"] == totals  # replayed
     trace.clear()

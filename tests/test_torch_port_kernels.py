@@ -15,10 +15,16 @@ from mage_tpu_torch.ops import cached_attention as ca
 from mage_tpu_torch.ops import gn_conv as gc
 from mage_tpu_torch.ops import vq
 from mage_tpu_torch.ops import vq_tail as vt
+from mage_tpu_torch.utils import trace
 
 DTYPES = [torch.float32, torch.bfloat16]
 # f32: the same math in another order; bf16: one rounding step of the output
 TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5), torch.bfloat16: dict(rtol=2**-7, atol=1e-5)}
+
+
+def launched(kernel: str) -> int:
+    """The launches of ``kernel``'s launcher counted so far in the process."""
+    return trace.launch_counts().get(kernel, 0)
 
 
 @pytest.fixture()
@@ -43,13 +49,12 @@ def test_vq_kernel_matches_plain(gen, dtype, n, k, d):
     z[0] = cb[k // 3]
     cb[k - 1] = cb[5]  # a tie across chunks or CTAs
     z[1] = cb[5]
-    before = vq.KERNEL.launches, dict(vq.ROUTE_LAUNCHES)
+    before = launched("vq")
     idx, codes = vq.nearest_with_codes(z, cb)
-    assert vq.KERNEL.launches == before[0] + 1
-    variant = vq.route(z, cb)
-    assert vq.ROUTE_LAUNCHES[variant] == before[1][variant] + 1
+    assert launched("vq") == before + 1
+    assert vq.route(z, cb) == ("wgmma" if dtype == torch.bfloat16 and d % 8 == 0 else "simt")
     ids_only = vq.nearest_codebook_indices(z, cb)
-    assert vq.KERNEL.launches == before[0] + 2
+    assert launched("vq") == before + 2
     again, codes_again = vq.nearest_with_codes(z, cb)
     torch.testing.assert_close(ids_only, idx, rtol=0, atol=0)
     assert torch.equal(again, idx) and torch.equal(codes_again, codes)  # two launches bit-equal
@@ -123,9 +128,9 @@ def test_gn_conv_kernel_matches_plain(gen, dtype, b, h, w, c, cout, monkeypatch)
     beta = torch.randn(c, generator=gen, device="cuda") * 0.2
     weight = torch.randn(cout, c, 3, 3, generator=gen, device="cuda") / (9 * c) ** 0.5
     bias = torch.randn(cout, generator=gen, device="cuda") * 0.1
-    before = gc.KERNEL.launches, gc.KERNEL_STATS.launches
+    before = launched("gn_conv"), launched("gn_stats")
     got = gc.gn_silu_conv3x3(x, gamma, beta, weight, bias, groups=16)
-    assert (gc.KERNEL.launches, gc.KERNEL_STATS.launches) == (before[0] + 1, before[1] + 1)
+    assert (launched("gn_conv"), launched("gn_stats")) == (before[0] + 1, before[1] + 1)
     a, shift = gc.gn_stats(x, gamma, beta, groups=16)
     for got_row, want_row in zip((a, shift), gc.gn_affine_rows(x, gamma, beta, 16, 1e-6)):
         torch.testing.assert_close(got_row, want_row, rtol=1e-5,
@@ -161,9 +166,9 @@ def test_gn_stats_kernel_matches_plain(gen, dtype, b, h, w, c, groups):
     x = (torch.randn(b, h, w, c, generator=gen, device="cuda") * 2 + 0.5).to(dtype)
     gamma = torch.randn(c, generator=gen, device="cuda") * 0.5 + 1
     beta = torch.randn(c, generator=gen, device="cuda") * 0.2
-    before = gc.KERNEL_STATS.launches
+    before = launched("gn_stats")
     a, shift = gc.gn_stats(x, gamma, beta, groups=groups)
-    assert gc.KERNEL_STATS.launches == before + 1
+    assert launched("gn_stats") == before + 1
     want_a, want_b = gc.gn_stats(x, gamma, beta, groups=groups, impl="torch")
     assert a.shape == shift.shape == (b, c) and a.dtype == shift.dtype == torch.float32
     torch.testing.assert_close(a, want_a, rtol=1e-5, atol=1e-5 * float(want_a.abs().max()))
@@ -242,9 +247,9 @@ def test_axial_block_kernel_matches_plain(gen, dtype, g, s, d, heads):
     version sum in other orders)."""
     x = torch.randn(g, s, d, generator=gen, device="cuda").to(dtype)
     params = _block_params(gen, d, dtype)
-    before = ax.KERNEL_BLOCK.launches
+    before = launched("axial_block")
     got = ax.axial_block_fused(x, params, heads)
-    assert ax.KERNEL_BLOCK.launches == before + 1
+    assert launched("axial_block") == before + 1
     want = ax.axial_block_fused(x, params, heads, impl="torch")
     assert got.shape == (g, s, d) and got.dtype == dtype
     scale = float(want.float().abs().max())
@@ -288,24 +293,24 @@ def test_kernel_route_gradients_are_the_plain_versions(gen, op):
     g, s, d, heads = 37, 16, 128, 4
     if op == "axial_slot_attention":
         inputs = [torch.randn(g, s, d, generator=gen, device="cuda") for _ in range(3)]
-        kernel = ax.KERNEL
+        kernel = "axial"
 
         def run(*t, impl="auto"):
             return ax.axial_slot_attention(*t, heads, impl=impl)
     else:
         inputs = [torch.randn(g, s, d, generator=gen, device="cuda"),
                   *_block_params(gen, d, torch.float32)]
-        kernel = ax.KERNEL_BLOCK
+        kernel = "axial_block"
 
         def run(x, *p, impl="auto"):
             return ax.axial_block_fused(x, p, heads, impl=impl)
     leaves = [t.requires_grad_() for t in inputs]
     up = torch.randn(g, s, d, generator=gen, device="cuda")
-    before = kernel.launches
+    before = launched(kernel)
     got_out = run(*leaves)
-    assert kernel.launches == before + 1
+    assert launched(kernel) == before + 1
     got = torch.autograd.grad((got_out * up).sum(), leaves)
-    assert kernel.launches == before + 1  # the backward launches no kernel
+    assert launched(kernel) == before + 1  # the backward launches no kernel
     want = torch.autograd.grad((run(*leaves, impl="torch") * up).sum(), leaves)
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5 * float(b.abs().max()))
@@ -325,11 +330,11 @@ def test_straight_through_gradients_on_the_card_equal_the_cpus(gen, n, k, d):
     out = {}
     for dev in ("cuda", "cpu"):
         zl, cbl = z.to(dev).requires_grad_(), cb.to(dev).requires_grad_()
-        before = vq.KERNEL.launches
+        before = launched("vq")
         codes, idx = vq.vq_straight_through(zl, cbl)
         loss = (codes * up.to(dev)).sum() + (vq.codebook_lookup(cbl, idx) ** 2).sum()
         grads = torch.autograd.grad(loss, (zl, cbl))
-        assert vq.KERNEL.launches == before + (dev == "cuda")
+        assert launched("vq") == before + (dev == "cuda")
         out[dev] = [t.detach().cpu() for t in (codes, idx, *grads)]
     (codes, idx, gz, gcb), (codes_c, idx_c, gz_c, gcb_c) = out["cuda"], out["cpu"]
     assert torch.equal(idx, idx_c) and torch.equal(codes, codes_c)
@@ -356,13 +361,13 @@ def test_quantized_cache_attention_on_the_card_equals_the_cpus(gen, bits):
     ck, cv = torch.stack(codes[:length]), torch.stack(codes[length:])
     sk, sv = torch.cat(scales[:length]), torch.cat(scales[length:])
     q = torch.randn(n, d, generator=gen, device="cuda")
-    before = ca.KERNEL.launches
+    before = launched("cached")
     for pos in (0, 7, length - 1):
         got = ca.cached_slot_attention_quant(q, ck, cv, sk, sv, pos, heads).cpu()
         want = ca.cached_slot_attention_quant(q.cpu(), ck.cpu(), cv.cpu(), sk.cpu(), sv.cpu(),
                                               pos, heads)
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * float(want.abs().max()))
-    assert ca.KERNEL.launches == before
+    assert launched("cached") == before
 
 
 def _small_pipeline(device, kv_quant):
@@ -415,14 +420,14 @@ def test_generate_cached_with_an_int8_cache_launches_no_cached_kernel(gen):
     pipe = _small_pipeline("cuda", "int8")
     lat0 = torch.randint(0, 32, (2, 1, 8, 8), generator=gen, device="cuda", dtype=torch.int32)
     text = torch.randint(3, 29, (2, 12), generator=gen, device="cuda")
-    before, axial = ca.KERNEL.launches, ax.KERNEL.launches
+    before, axial = launched("cached"), launched("axial")
     ids = pipe.core.generate_cached(lat0, text, torch.rand(2, generator=gen, device="cuda"))
     assert ids.shape == (2, 3, 8, 8)
-    assert ca.KERNEL.launches == before
-    assert ax.KERNEL.launches == axial + 2 * 4  # the spatial blocks still launch theirs
+    assert launched("cached") == before
+    assert launched("axial") == axial + 2 * 4  # the spatial blocks still launch theirs
     pipe.core.generate_model.kv_quant = None
     pipe.core.generate_cached(lat0, text, torch.rand(2, generator=gen, device="cuda"))
-    assert ca.KERNEL.launches == before + 4  # one temporal block, 4 slots
+    assert launched("cached") == before + 4  # one temporal block, 4 slots
 
 
 def _tail_inputs(gen, b, h, w, c=64, cout=256, o=3):
@@ -446,9 +451,9 @@ def test_vq_tail_kernel_matches_plain(gen, b, h, w, monkeypatch):
     output."""
     monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
     args = _tail_inputs(gen, b, h, w)
-    before = vt.KERNEL.launches
+    before = launched("vq_tail")
     got = vt.vq_decode_tail(*args)
-    assert vt.KERNEL.launches == before + 1
+    assert launched("vq_tail") == before + 1
     want = vt.vq_decode_tail(*args, impl="torch")
     assert got.shape == (b, h, w, 3) and got.dtype == torch.bfloat16
     torch.testing.assert_close(got.float(), want.float(), **TOL[torch.bfloat16])
@@ -462,24 +467,23 @@ def test_vq_tail_launches_once_per_decode_chunk(gen):
     f32 decode than the bf16 layer chain is."""
     from mage_tpu_torch.models.pipeline import FirstStageVQVAE
     from mage_tpu_torch.models.vqvae import VectorQuantizedVAE
-    from mage_tpu_torch.utils import trace
 
     torch.manual_seed(0)
     model = VectorQuantizedVAE(input_dim=3, down_ratio=8, dim=256, K=64).cuda().eval()
     ids = torch.randint(0, 64, (2, 6, 4, 4), generator=gen, device="cuda")
     first = FirstStageVQVAE(model)
-    before = vt.KERNEL.launches
+    before = launched("vq_tail")
     exact = first.decode(ids, max_chunk=5)  # f32
-    assert vt.KERNEL.launches == before
+    assert launched("vq_tail") == before
     model.to(torch.bfloat16)
     trace.clear()
     with trace.span("mage.decode"):
         fused = first.decode(ids, max_chunk=5)  # 12 frames: 3 chunks of 4
-    assert vt.KERNEL.launches == before + 3
+    assert launched("vq_tail") == before + 3
     assert trace.records()[-1]["launches"] == {"vq_tail": 3}
     with torch.enable_grad():
         chain = model.decode(ids.reshape(-1, 4, 4)).detach().reshape(fused.shape)
-    assert vt.KERNEL.launches == before + 3
+    assert launched("vq_tail") == before + 3
     err_fused = float((fused.float() - exact).abs().max())
     err_chain = float((chain.float() - exact).abs().max())
     assert err_fused <= err_chain + 2 ** -8

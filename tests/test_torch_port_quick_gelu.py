@@ -32,6 +32,12 @@ from mage_tpu_torch.utils import trace
 INT = {torch.bfloat16: torch.int16, torch.float32: torch.int32, torch.float64: torch.int64}
 
 
+def _launched():
+    """The forward and backward launches counted so far in the process."""
+    counts = trace.launch_counts()
+    return counts.get("quick_gelu", 0), counts.get("quick_gelu_bwd", 0)
+
+
 def _chain(x):
     """The activation as the port wrote it before the kernel."""
     return x * torch.sigmoid(1.702 * x)
@@ -134,13 +140,13 @@ def test_the_function_saves_x_only_and_runs_the_backward_formula(monkeypatch):
 
 
 def test_off_the_card_no_kernel_launches():
-    before = qg.KERNEL.launches, qg.KERNEL_BWD.launches
+    before = _launched()
     trace.clear()
     with trace.span("probe"):
         x = torch.randn(8, 16, requires_grad=True)
         qg.quick_gelu(x).sum().backward()
         qg.quick_gelu(x.detach().half())  # any dtype on the CPU
-    assert (qg.KERNEL.launches, qg.KERNEL_BWD.launches) == before
+    assert _launched() == before
     assert trace.records()[-1]["launches"] == {}
     trace.clear()
 
@@ -155,13 +161,13 @@ def test_the_launchers_reject_what_the_kernels_do_not_take(case, error):
     x, g = make(torch.randn(64, 32)), make(torch.randn(64, 32))
     if case == "shapes":
         g = g[:32]
-    before = qg.KERNEL.launches, qg.KERNEL_BWD.launches
+    before = _launched()
     if case != "shapes":
         with pytest.raises(error):
             qg._forward_cuda(x)
     with pytest.raises(error):
         qg._backward_cuda(x, g)
-    assert (qg.KERNEL.launches, qg.KERNEL_BWD.launches) == before
+    assert _launched() == before
 
 
 def _mlp(d, gen, dtype=torch.float64):
@@ -299,12 +305,12 @@ def test_the_f32_backward_is_near_f64(gen):
 
 
 def test_one_launch_a_forward_and_one_a_backward(gen):
-    """By the kernels' counters; the caller's span counts the forward (the
+    """By the launch totals; the caller's span counts the forward (the
     backward runs on autograd's device thread, outside it)."""
     mlp = layers.MLP(512).to(device="cuda", dtype=torch.bfloat16)
     x = torch.randn(3, 64, 512, generator=gen, device="cuda").to(torch.bfloat16)
     for need_grad in (False, True):
-        before = qg.KERNEL.launches, qg.KERNEL_BWD.launches
+        before = _launched()
         trace.clear()
         with trace.span("probe"):
             xi = x.clone().requires_grad_(need_grad)
@@ -313,8 +319,8 @@ def test_one_launch_a_forward_and_one_a_backward(gen):
                 out.sum().backward()
         mlp.requires_grad_(True)
         assert trace.records()[-1]["launches"].get("quick_gelu") == 1
-        assert (qg.KERNEL.launches - before[0], qg.KERNEL_BWD.launches - before[1]) == (
-            1, int(need_grad))
+        after = _launched()
+        assert (after[0] - before[0], after[1] - before[1]) == (1, int(need_grad))
         torch.cuda.synchronize()
     trace.clear()
     with torch.no_grad():
@@ -329,14 +335,14 @@ def test_graph_capture_counts_the_launch_once_a_replay(gen):
         qg.quick_gelu(x)
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    before = qg.KERNEL.launches
+    before = _launched()[0]
     with _build.capturing_launches() as captured, torch.cuda.graph(graph):
         y = qg.quick_gelu(x)
-    assert qg.KERNEL.launches == before
+    assert _launched()[0] == before and captured == {"quick_gelu": 1}
     for _ in range(2):
         graph.replay()
-        captured.credit()
+        _build.credit(captured)
     torch.cuda.synchronize()
-    assert qg.KERNEL.launches == before + 2
+    assert _launched()[0] == before + 2
     _bits_equal(y, _chain(x))
 

@@ -3,9 +3,11 @@ keeps host stamps and launch counts and records no events or ranges; under
 ``torch.profiler`` each span's stamps match its range in the exported
 chrome trace; a timed span (the train step) records device times always;
 ``generate`` and the train step record their stages; and the launch
-counter (``_build.launcher``) charges the innermost open span."""
+counter (``_build.launcher``) charges the innermost open span and the
+process-wide totals, which count a launch on any thread."""
 
 import json
+import threading
 
 import numpy as np
 import pytest
@@ -266,6 +268,23 @@ def test_a_launcher_that_raises_counts_nothing():
         _fake_launcher("ok")(0)
     (rec,) = trace.records()
     assert rec["launches"] == {"ok": 1}
+
+
+def test_a_launch_on_another_thread_outside_every_span_counts_in_the_totals_only():
+    """As autograd's backward thread launches: the totals count it, and no
+    span does, not even one open on the thread that started the work."""
+    launch = _fake_launcher("elsewhere")
+    before = trace.launch_counts().get("elsewhere", 0)
+    with trace.span("caller"):
+        worker = threading.Thread(target=lambda: [launch(i) for i in range(3)])
+        worker.start()
+        worker.join()
+    (rec,) = trace.records()
+    assert rec["launches"] == {} and rec["launch_ns"] == 0
+    assert trace.launch_counts()["elsewhere"] == before + 3
+    counts = trace.launch_counts()
+    counts["elsewhere"] = 0  # a copy: the totals are not changed through it
+    assert trace.launch_counts()["elsewhere"] == before + 3
 
 
 def test_cost_analysis_lists_the_kernel_launches_it_cannot_count():
