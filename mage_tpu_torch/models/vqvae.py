@@ -8,7 +8,9 @@ width ``dim``. ``down_ratio=8``: a 7x7 stem, four bottleneck
 ``EncoderBlock``s with three 2x max-pools, codebook width ``4 * dim``, and a
 decoder of four ``DecoderBlock``s whose 2x nearest upsample is commuted past
 the block's pointwise entry (relu and the two 1x1 convs), as in the JAX
-package. Public tensors are NHWC; convolutions run on NCHW views of them.
+package, and past the trunk's second relu; the id path is added through a
+broadcast view at its own resolution, never upsampled. Public tensors are
+NHWC; convolutions run on NCHW views of them.
 
 ``encode`` (one ids-only vq launch) and ``decode`` are the frozen first
 stage's calls; an f8 ``decode`` in bf16 on the card with autograd off runs the
@@ -54,8 +56,39 @@ def _nhwc(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 1)
 
 
-def _upsample_nearest(x: torch.Tensor) -> torch.Tensor:
-    return F.interpolate(x, scale_factor=2, mode="nearest")
+def _repeat2(x: torch.Tensor) -> torch.Tensor:
+    """x (B, h, w, C) as its nearest 2x upsample, (B, h, 2, w, 2, C) with
+    stride 0 on the two repeats: a view, nothing is copied."""
+    b, h, w, c = x.shape
+    return x[:, :, None, :, None].expand(b, h, 2, w, 2, c)
+
+
+def _blocks2(x: torch.Tensor) -> torch.Tensor:
+    """x (B, 2h, 2w, C) as (B, h, 2, w, 2, C), each 2x2 pixel block on the
+    two size-2 dims: a view of x."""
+    return x.unflatten(2, (-1, 2)).unflatten(1, (-1, 2))
+
+
+class _Upsample2(torch.autograd.Function):
+    """The nearest 2x upsample of t (B, C, h, w), channels-last. Forward: one
+    copy of its broadcast view, moved as 8-byte words where a pixel's bytes
+    divide into them (PyTorch's strided copy moves one element a thread).
+    Backward: the sum of each 2x2 block's gradient."""
+
+    @staticmethod
+    def forward(ctx, t):
+        b, c, h, w = t.shape
+        out = torch.empty((b, c, 2 * h, 2 * w), dtype=t.dtype, device=t.device,
+                          memory_format=torch.channels_last)
+        src, dst = _nhwc(t).contiguous(), _nhwc(out)
+        if c * t.element_size() % 8 == 0:
+            src, dst = src.view(torch.int64), dst.view(torch.int64)
+        _blocks2(dst).copy_(_repeat2(src))
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _nchw(_blocks2(_nhwc(grad)).sum((2, 4)))
 
 
 def _on_card(x: torch.Tensor) -> bool:
@@ -171,8 +204,10 @@ class EncoderBlock(nn.Module):
 class DecoderBlock(nn.Module):
     """Bottleneck residual: relu, 1x1 conv, then (relu, 3x3 conv) x3, plus a
     1x1 id path when the channel count changes. ``upsample`` applies the 2x
-    nearest upsample after the pointwise entry and id path, which is exact
-    and costs a quarter of upsampling first. NCHW."""
+    nearest upsample after the pointwise entry, the id path and the trunk's
+    second relu, which is exact and costs a quarter of upsampling first; the
+    id path is never upsampled but added, at its own resolution, into each
+    2x2 block of the output in place. NCHW."""
 
     def __init__(self, dim_in: int, dim_out: int, upsample: bool = False):
         super().__init__()
@@ -188,17 +223,19 @@ class DecoderBlock(nn.Module):
 
     def forward(self, x):
         idp = x if self.id_path is None else self.id_path(x)
-        if self.upsample:
-            idp = _upsample_nearest(idp)
-        return idp + self.block[6:](self.trunk(x))
+        y = self.block[6:](self.trunk(x))
+        if not self.upsample:
+            return idp + y
+        _blocks2(_nhwc(y)).add_(_repeat2(_nhwc(idp)))  # the conv's backward keeps no output
+        return y
 
     def trunk(self, x):
         """The residual branch up to ``block[5]``'s output, at the output's
         resolution: what its final relu and 3x3 conv read."""
-        h = self.block[1](self.block[0](x))
-        if self.upsample:
-            h = _upsample_nearest(h)
-        return self.block[2:6](h)
+        if not self.upsample:
+            return self.block[:6](x)
+        h = _Upsample2.apply(self.block[:3](x))
+        return self.block[3:6](h)
 
 
 class _Codebook(nn.Module):

@@ -489,6 +489,30 @@ def test_vq_tail_launches_once_per_decode_chunk(gen):
     assert err_fused <= err_chain + 2 ** -8
 
 
+def test_vq_decode_at_the_cells_shape_is_the_materialised_chain(gen, monkeypatch):
+    """288 frames of 16 x 16 ids in bf16, the decode of a MAGE generate at
+    batch 32, L=10: bit-equal to the decoder whose upsamples
+    ``F.interpolate`` computes (each upsampling block's id path and trunk
+    upsampled, then the trunk's second relu), the tail kernel on both."""
+    from mage_tpu_torch.models.pipeline import FirstStageVQVAE
+    from mage_tpu_torch.models.vqvae import DecoderBlock, VectorQuantizedVAE
+    from test_torch_port_vq_tail import _materialised, _materialised_trunk
+
+    torch.manual_seed(0)
+    model = VectorQuantizedVAE(input_dim=3, down_ratio=8, dim=256, K=512)
+    first = FirstStageVQVAE(model.cuda().to(torch.bfloat16).eval())
+    ids = torch.randint(0, 512, (32, 9, 16, 16), generator=gen, device="cuda")
+    before = launched("vq_tail")
+    with torch.no_grad():
+        got = first.decode(ids)
+        monkeypatch.setattr(DecoderBlock, "trunk", _materialised_trunk)
+        monkeypatch.setattr(DecoderBlock, "forward", _materialised)
+        want = first.decode(ids)
+    assert launched("vq_tail") == before + 2
+    assert got.shape == (32, 9, 128, 128, 3)
+    assert torch.equal(got, want)
+
+
 def test_vq_tail_rejects_what_it_does_not_take(gen):
     hh, x, w7, b7, w8, b8 = _tail_inputs(gen, 1, 8, 8)
     with pytest.raises(TypeError):  # f32

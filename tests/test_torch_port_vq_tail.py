@@ -2,12 +2,14 @@
 version against the layer chain it replaces, and the route in
 ``VectorQuantizedVAE.decode`` that takes it (bf16, f8, autograd off, on the
 card). The kernel itself is held to the plain version on the card in
-``test_torch_port_kernels.py``.
+``test_torch_port_kernels.py``. Also the upsampling ``DecoderBlock`` against
+the chain that computes its upsamples with ``F.interpolate``.
 """
 
 import pytest
 import torch
 import torch.nn.functional as F
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from mage_tpu_torch.models import vqvae
 from mage_tpu_torch.models.pipeline import FirstStageVQVAE
@@ -140,3 +142,86 @@ def test_vq_decode_tail_rejects_mismatched_shapes_and_impls():
         vq_tail.vq_decode_tail(h, x, *args, impl="pallas")
     assert vq_tail.kernel_takes(64, 256, 3)  # the f8 decoder at dim 256
     assert not vq_tail.kernel_takes(16, 64, 3) and not vq_tail.kernel_takes(64, 256, 1)
+
+
+def _up(t):
+    return F.interpolate(t, scale_factor=2, mode="nearest")
+
+
+def _materialised_trunk(block, x):
+    """``DecoderBlock.trunk`` with its upsample computed: the pointwise entry
+    upsampled by ``F.interpolate``, then the second relu at full resolution."""
+    if not block.upsample:
+        return block.block[:6](x)
+    return block.block[2:6](_up(block.block[:2](x)))
+
+
+def _materialised(block, x):
+    """``DecoderBlock.forward`` with its upsamples computed: the id path
+    upsampled by ``F.interpolate`` and added to the materialised trunk's
+    branch."""
+    idp = x if block.id_path is None else block.id_path(x)
+    y = block.block[6:](_materialised_trunk(block, x))
+    return (_up(idp) if block.upsample else idp) + y
+
+
+def _block_input(dim_in, dtype):
+    """A channels-last (2, dim_in, 5, 7) input, as the decoder's NHWC views give."""
+    x = torch.randn(2, 5, 7, dim_in, generator=torch.Generator().manual_seed(6))
+    return x.to(dtype).permute(0, 3, 1, 2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+# with and without id_path; at (4, 8) a bf16 trunk pixel is 4 bytes, too few for the
+# upsample's 8-byte words, so it copies bf16 elements
+@pytest.mark.parametrize("dim_in,dim_out", [(32, 16), (16, 16), (4, 8)])
+def test_upsampling_decoder_block_is_the_materialised_chain_bit_for_bit(dtype, dim_in, dim_out):
+    torch.manual_seed(7)
+    block = vqvae.DecoderBlock(dim_in, dim_out, upsample=True).to(dtype)
+    assert (block.id_path is None) == (dim_in == dim_out)
+    x = _block_input(dim_in, dtype)
+    with torch.no_grad():
+        got, want = block(x), _materialised(block, x)
+        trunk, trunk_want = block.trunk(x), _materialised_trunk(block, x)
+    assert got.shape == (2, dim_out, 10, 14)
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    assert want.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(got, want) and torch.equal(trunk, trunk_want)
+
+
+@pytest.mark.parametrize("dim_in,dim_out", [(32, 16), (16, 16)])
+def test_upsampling_decoder_block_gradients_are_the_materialised_chains(dim_in, dim_out):
+    """f32: the input's and the parameters' gradients sum the same four values
+    of each 2x2 block, in another order."""
+    torch.manual_seed(8)
+    block = vqvae.DecoderBlock(dim_in, dim_out, upsample=True)
+    seed = torch.randn(2, dim_out, 10, 14, generator=torch.Generator().manual_seed(9))
+    grads = []
+    for run in (block, lambda x: _materialised(block, x)):
+        block.zero_grad()
+        x = _block_input(dim_in, torch.float32).requires_grad_()
+        (run(x) * seed).mean().backward()  # a mean, as a training loss is
+        grads.append([x.grad] + [p.grad for p in block.parameters()])
+    assert len(grads[1]) == len(list(block.parameters())) + 1
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+
+
+class _OpLog(TorchDispatchMode):
+    def __init__(self):
+        super().__init__()
+        self.ops = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.ops.append(func.overloadpacket)
+        return func(*args, **(kwargs or {}))
+
+
+def test_decode_on_the_card_route_runs_no_upsample_kernel(on_card_spy):
+    first = FirstStageVQVAE(_model(256).to(torch.bfloat16))
+    ids = torch.randint(0, 16, (2, 4, 2, 2), generator=torch.Generator().manual_seed(10))
+    with torch.no_grad(), _OpLog() as log:
+        first.decode(ids, max_chunk=4)  # 8 frames: 2 chunks of 4
+    assert on_card_spy == [(4, 16, 16, 64)] * 2
+    assert torch.ops.aten.convolution in log.ops  # the log sees the decoder's ops
+    assert torch.ops.aten.upsample_nearest2d not in log.ops
